@@ -11,18 +11,21 @@ Phases (any failure raises and the exit code is nonzero):
 2. build   -- compiles every kernel in ewvit_tpu_torch/csrc with nvcc for
               sm_90a (one nvcc per source, in parallel), loads them;
 3. kernels -- holds each hand-written kernel against its plain PyTorch version
-              on the card at the main path's shapes, in float32 (TF32 off) and
+              on the card at the main path's shapes (K5, in no model, at the
+              MWT's two stride-1 conv shapes), in float32 (TF32 off) and
               bfloat16, and times kernel, plain version and, where one
               exists, a single PyTorch call computing the same function, with
               CUDA events;
 4. serve   -- builds the full-width dynamic detector (ModelConfig(): 224 px,
               V2-S, dama_dim 128, 4 heads, 3 levels) with seeded random
-              weights and the three kernel flags on, zeroes the launch
-              counters, serves requests of uint8 clips [2, 40, 224, 224, 3]
-              through InferenceEngine.predict and predict_stream (frame_chunk
-              32: one full chunk and one masked tail, 64 flattened rows),
-              reads the counters, checks the probabilities, and holds them
-              against the same weights served on the plain path;
+              weights and serves it on two paths: the three kernel flags on
+              (K1, K2, K4), and all four (use_fused_mwt_tail adds K3). For
+              each path it zeroes the launch counters, serves requests of
+              uint8 clips [2, 40, 224, 224, 3] through InferenceEngine.predict
+              and predict_stream (frame_chunk 32: one full chunk and one
+              masked tail, 64 flattened rows), reads the counters, checks the
+              probabilities, and holds the outputs against the same weights
+              served on the plain (direct-conv) modules in fp32;
 5. report  -- one JSON line describing every kernel, then the final line
               {"ok": true, "device": {...}}.
 
@@ -51,11 +54,21 @@ from ewvit_tpu_torch.ops.fused_attention import (
     fused_cross_attention_plain,
 )
 from ewvit_tpu_torch.ops.haar import haar_dwt2d, haar_dwt2d_plain
+from ewvit_tpu_torch.ops.mwt_tail import (
+    fused_multiscale_winograd,
+    fused_multiscale_winograd_plain,
+    multiscale_winograd_u,
+)
 from ewvit_tpu_torch.ops.preprocess import preprocess_batch
+from ewvit_tpu_torch.ops.winograd import conv3x3_winograd, conv3x3_winograd_plain
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
+BF16_MMA_OPS_PER_S = 989e12   # H100 SXM bf16 tensor cores, dense
 F32_TOL = dict(atol=1e-5, rtol=1e-5)      # fp32: summation order only
+# fp32 Winograd (K3, K5) against its plain version: the same products summed
+# in another order over 384 or 54 input channels and 16 transform positions
+WINO_F32_TOL = dict(atol=1e-4, rtol=1e-4)
 BF16_TOL = dict(atol=1e-2, rtol=1.6e-2)   # one bf16 rounding of the output
 # End to end, (features, logits) as (atol, rtol): video-mean features
 # 'fused'/'space'/'freq' [B, 128] and logits [B, 1] of the same weights.
@@ -118,8 +131,11 @@ def time_ms(fn, iters=20, warmup=3):
     return tuple(out)
 
 
-def bound_ms(nbytes, nops):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / FP32_OPS_PER_S
+def bound_ms(nbytes, nops, peak=FP32_OPS_PER_S):
+    """Least time for the work: bytes over the memory rate or operations over
+    ``peak`` (fp32 FMAs by default; the bf16 tensor-core rate for work that
+    is matrix products), whichever is larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -160,10 +176,11 @@ class Timings:
     """Per-chunk totals for one kernel: device and wall ms of the kernel, its
     plain version and (where one exists) the library call, and its bound."""
 
-    def __init__(self):
+    def __init__(self, peak=FP32_OPS_PER_S):
         self.t = dict(ms=0.0, wall_ms=0.0, plain_ms=0.0, plain_wall_ms=0.0,
                       library_ms=None, bound_ms=0.0)
         self.nbytes = self.nops = 0
+        self.peak = peak
 
     def add(self, count, kernel, plain, library=None, nb=0, ops=0):
         # the plain versions launch many kernels per call: fewer iterations
@@ -176,12 +193,12 @@ class Timings:
             self.t[f"{key}ms"] = (self.t[f"{key}ms"] or 0.0) + count * dev_ms
             if key != "library_":
                 self.t[f"{key}wall_ms"] += count * wall_ms
-        self.t["bound_ms"] += count * bound_ms(nb, ops)[0]
+        self.t["bound_ms"] += count * bound_ms(nb, ops, self.peak)[0]
         self.nbytes += count * nb
         self.nops += count * ops
 
     def entry(self, **kw):
-        return dict(kw, bound_by=bound_ms(self.nbytes, self.nops)[1], **self.t)
+        return dict(kw, bound_by=bound_ms(self.nbytes, self.nops, self.peak)[1], **self.t)
 
 
 def phase_kernels(dev):
@@ -189,6 +206,7 @@ def phase_kernels(dev):
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device=dev).manual_seed(0)
     report = []
+    extension.reset_launches()     # K5's reported launches are this phase's
 
     # K1: Haar DWT, 3 launches per chunk (one per MWT level, 224/112/56 px)
     errs, tm = [], Timings()
@@ -259,11 +277,90 @@ def phase_kernels(dev):
         source="ewvit_tpu_torch/csrc/fused_attention.cu",
         replaces="ewvit_tpu/ops/fused_attention.py:142", max_abs_err=max(errs)))
 
+    report += winograd_kernels(dev, g)
+    report[-1]["launches"] = extension.LAUNCHES["conv3x3_winograd"]
+
     for r in report:
         print(f"[kernels] {r['name']} per chunk (bf16, device ms / wall ms): kernel "
               f"{r['ms']:.4f} / {r['wall_ms']:.4f}, plain {r['plain_ms']:.4f} / "
               f"{r['plain_wall_ms']:.4f}, library {r['library_ms']}, bound "
               f"{r['bound_ms']:.4f} ({r['bound_by']})")
+    return report
+
+
+def winograd_kernels(dev, g):
+    """K3 at the MWT's full-width multiscale_fusion (3 levels [64, 128, 112,
+    112] -> 128), 1 launch per chunk; K5 at the MWT's two stride-1 conv
+    shapes (hf_fusion 54 -> 128, multiscale_fusion 384 -> 128), one call
+    each. Bounds use the bf16 tensor-core peak: the work is matrix products
+    the tensor cores can do. Operations count the 16 transform-domain
+    products only (2*16*tiles*Cin*Cout)."""
+    side, c, levels = 112, 128, 3
+    tiles = N_ROWS * (side // 2) ** 2
+    report = []
+
+    errs, tm = [], Timings(BF16_MMA_OPS_PER_S)
+    w = torch.randn(c, levels * c, 3, 3, device=dev, generator=g) / (9 * levels * c) ** 0.5
+    conv_b = 0.1 * torch.randn(c, device=dev, generator=g)
+    scale = 0.5 + torch.rand(c, device=dev, generator=g)
+    shift = 0.1 * torch.randn(c, device=dev, generator=g)
+    bias = conv_b * scale + shift
+    for dtype, tol in ((torch.float32, WINO_F32_TOL), (torch.bfloat16, BF16_TOL)):
+        ys = [torch.randn(N_ROWS, c, side, side, device=dev, generator=g).to(dtype)
+              for _ in range(levels)]
+        wd = w.to(dtype)
+        u = multiscale_winograd_u(wd, scale, levels, dtype)
+        out = fused_multiscale_winograd(ys, u, bias)
+        ref = fused_multiscale_winograd_plain(ys, u, bias)
+        what = f"fused_multiscale_winograd {levels} x {tuple(ys[0].shape)} {dtype}"
+        errs.append(max_err(out, ref, what=what, **tol))
+        print(f"[kernels] {what}: max abs err {errs[-1]:.3e} (tol {tol}; |ref| max "
+              f"{ref.float().abs().max().item():.3e})")
+        if dtype == torch.bfloat16:
+            cat = torch.cat(ys, dim=1)
+            w_fold = (wd.float() * scale[:, None, None, None]).to(dtype)
+            b_lib = bias.to(dtype)
+            # library yardstick: one cuDNN conv on the concatenated levels,
+            # folded weight and bias; it leaves out the ReLU
+            tm.add(1, lambda: fused_multiscale_winograd(ys, u, bias),
+                   lambda: fused_multiscale_winograd_plain(ys, u, bias),
+                   lambda: F.conv2d(cat, w_fold, b_lib, padding=1),
+                   nb=nbytes(*ys, out, u, bias), ops=2 * 16 * levels * tiles * c * c)
+            del cat
+        del ys, out, ref
+    report.append(tm.entry(
+        name="fused_multiscale_winograd", route="cuda",
+        source="ewvit_tpu_torch/csrc/winograd.cu",
+        replaces="ewvit_tpu/ops/mwt_tail.py:108", max_abs_err=max(errs)))
+
+    errs, tm = [], Timings(BF16_MMA_OPS_PER_S)
+    for cin in (54, 384):
+        wk = torch.randn(c, cin, 3, 3, device=dev, generator=g) / (9 * cin) ** 0.5
+        for dtype, tol in ((torch.float32, WINO_F32_TOL), (torch.bfloat16, BF16_TOL)):
+            x = torch.randn(N_ROWS, cin, side, side, device=dev, generator=g).to(dtype)
+            wd = wk.to(dtype)
+            out = conv3x3_winograd(x, wd)
+            ref = conv3x3_winograd_plain(x, wd)
+            what = f"conv3x3_winograd {tuple(x.shape)} -> {c} {dtype}"
+            errs.append(max_err(out, ref, what=what, **tol))
+            print(f"[kernels] {what}: max abs err {errs[-1]:.3e} (tol {tol}; |ref| max "
+                  f"{ref.float().abs().max().item():.3e})")
+            if dtype == torch.bfloat16:
+                before = dict(tm.t)
+                tm.add(1, lambda: conv3x3_winograd(x, wd),
+                       lambda: conv3x3_winograd_plain(x, wd),
+                       lambda: F.conv2d(x, wd, padding=1),
+                       nb=nbytes(x, wd, out), ops=2 * 16 * tiles * cin * c)
+                print(f"[kernels] conv3x3_winograd Cin={cin} (bf16, device ms): kernel "
+                      f"{tm.t['ms'] - before['ms']:.4f}, plain "
+                      f"{tm.t['plain_ms'] - before['plain_ms']:.4f}, library "
+                      f"{tm.t['library_ms'] - (before['library_ms'] or 0.0):.4f}, bound "
+                      f"{tm.t['bound_ms'] - before['bound_ms']:.4f}")
+            del x, out, ref
+    report.append(tm.entry(
+        name="conv3x3_winograd", route="cuda", source="ewvit_tpu_torch/csrc/winograd.cu",
+        replaces="ewvit_tpu/ops/winograd_pallas.py:45", max_abs_err=max(errs)))
+    torch.cuda.empty_cache()
     return report
 
 
@@ -306,42 +403,76 @@ def serve(cfg, state, requests, *, count):
                 launches=launches, outputs=outputs)
 
 
-def phase_serve():
-    rng = np.random.default_rng(0)
-    requests = [rng.integers(0, 256, (2, 40, 224, 224, 3), dtype=np.uint8)
-                for _ in range(3)]
-    flags = dict(use_pallas_dwt=True, use_pallas_dwse=True, use_pallas_dama=True)
-    cfg = ModelConfig().replace(**flags)
-    if cfg.compute_dtype != "bfloat16" or cfg.arch.image_size != 224:
-        fail(f"unexpected serving config {cfg}")
-    state = random_detector(cfg, device="cuda", seed=0).state_dict()
-
-    served = serve(cfg, state, requests, count=True)
-    launches = served["launches"]
-    print(f"[serve] bf16, kernels on: per-request latency ms "
-          f"{[round(v, 3) for v in served['lat']]}, stream of {len(requests)} in "
-          f"{served['stream_ms']:.3f} ms; launches {launches}")
-    for name, n in launches.items():
-        if n == 0:
-            fail(f"kernel {name} was never launched on the main path")
+def check_probs(served):
     for p, q in zip(served["probs"], served["streamed"]):
         if p.shape != (2,) or not np.isfinite(p).all() or not ((p > 0) & (p < 1)).all():
             fail(f"bad probabilities {p}")
         if np.abs(p - q).max() > 1e-6:
             fail(f"predict_stream {q} differs from predict {p}")
-    print(f"[serve] probabilities {[p.tolist() for p in served['probs']]}")
+
+
+def phase_serve():
+    """Serve both paths in bf16 with launch counts, then hold them, and their
+    fp32 twins, against the fp32 plain (direct-conv) modules. Returns the
+    launch counts of each path."""
+    rng = np.random.default_rng(0)
+    requests = [rng.integers(0, 256, (2, 40, 224, 224, 3), dtype=np.uint8)
+                for _ in range(3)]
+    flags = dict(use_pallas_dwt=True, use_pallas_dwse=True, use_pallas_dama=True)
+    paths = {"three_flags": ModelConfig().replace(**flags),
+             "fused_mwt_tail": ModelConfig().replace(use_fused_mwt_tail=True, **flags)}
+    for cfg in paths.values():
+        if cfg.compute_dtype != "bfloat16" or cfg.arch.image_size != 224:
+            fail(f"unexpected serving config {cfg}")
+    state = random_detector(paths["three_flags"], device="cuda", seed=0).state_dict()
+    # K3 launches once per chunk: predict and predict_stream each serve every
+    # request, in ceil(K / frame_chunk) chunks
+    chunks = 2 * len(requests) * -(-requests[0].shape[1] // 32)
+    must_launch = {"three_flags": ("haar_dwt2d", "dw_bn_silu_mean",
+                                   "fused_bidirectional_cross_attention"),
+                   "fused_mwt_tail": ("haar_dwt2d", "dw_bn_silu_mean",
+                                      "fused_bidirectional_cross_attention",
+                                      "fused_multiscale_winograd")}
+
+    served, launches = {}, {}
+    for name, cfg in paths.items():
+        run = served[name] = serve(cfg, state, requests, count=True)
+        launches[name] = run["launches"]
+        print(f"[serve] {name} bf16: per-request latency ms "
+              f"{[round(v, 3) for v in run['lat']]}, stream of {len(requests)} in "
+              f"{run['stream_ms']:.3f} ms; launches {run['launches']}")
+        # conv3x3_winograd (K5) is in no path: the JAX package wires it into
+        # no model, so it is held to its plain version in phase_kernels only
+        for k in must_launch[name]:
+            if run["launches"][k] == 0:
+                fail(f"kernel {k} was never launched on the {name} path")
+        check_probs(run)
+        print(f"[serve] {name} probabilities {[p.tolist() for p in run['probs']]}")
+    n_k3 = launches["fused_mwt_tail"]["fused_multiscale_winograd"]
+    if n_k3 != chunks:
+        fail(f"fused_multiscale_winograd launched {n_k3} times for {chunks} chunks")
+    if launches["three_flags"]["fused_multiscale_winograd"]:
+        fail("fused_multiscale_winograd launched on the three-flag path")
+    print("[serve] latency ms side by side (three_flags | fused_mwt_tail): " + ", ".join(
+        f"{a:.3f} | {b:.3f}" for a, b in zip(served["three_flags"]["lat"],
+                                             served["fused_mwt_tail"]["lat"])))
+    print(f"[serve] stream of {len(requests)} ms (three_flags | fused_mwt_tail): "
+          f"{served['three_flags']['stream_ms']:.3f} | "
+          f"{served['fused_mwt_tail']['stream_ms']:.3f}")
 
     f32 = dict(compute_dtype="float32")
-    k32 = serve(cfg.replace(**f32), state, requests, count=False)
     p32 = serve(ModelConfig().replace(**f32), state, requests, count=False)
     print(f"[serve] logits: fp32 plain {p32['outputs']['logits'].flatten().tolist()}")
-    for what, run, tols in (("fp32 kernels vs fp32 plain path", k32, OUT_TOL_F32),
-                            ("bf16 kernels vs fp32 plain path", served, OUT_TOL_BF16)):
-        for key, ref in p32["outputs"].items():
-            atol, rtol = tols[key == "logits"]
-            e = max_err(run["outputs"][key], ref, atol, rtol, f"{what}: {key}")
-            print(f"[serve] {what}: {key} max abs diff {e:.3e} (|ref| max "
-                  f"{ref.abs().max().item():.3e}; atol {atol}, rtol {rtol})")
+    for name, cfg in paths.items():
+        k32 = serve(cfg.replace(**f32), state, requests, count=False)
+        for what, run, tols in ((f"fp32 {name} vs fp32 plain path", k32, OUT_TOL_F32),
+                                (f"bf16 {name} vs fp32 plain path", served[name],
+                                 OUT_TOL_BF16)):
+            for key, ref in p32["outputs"].items():
+                atol, rtol = tols[key == "logits"]
+                e = max_err(run["outputs"][key], ref, atol, rtol, f"{what}: {key}")
+                print(f"[serve] {what}: {key} max abs diff {e:.3e} (|ref| max "
+                      f"{ref.abs().max().item():.3e}; atol {atol}, rtol {rtol})")
     return launches
 
 
@@ -355,9 +486,11 @@ def main() -> int:
     report = phase_kernels(dev)
     launches = phase_serve()
     for r in report:
-        r["launches"] = launches[r["name"]]
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
+        r["launches_by_path"] = {p: n[r["name"]] for p, n in launches.items()}
+        if r["name"] != "conv3x3_winograd":   # K5: the kernels phase's count
+            r["launches"] = launches["fused_mwt_tail"][r["name"]]
+    keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in report]}))
     print(json.dumps({"ok": True, "device": {

@@ -83,8 +83,8 @@ class ModelConfig:
 
     The kernel flags select the hand-written CUDA kernels of
     ``ewvit_tpu_torch.ops``; each runs only on CUDA tensors, and a CPU tensor
-    takes the kernel's plain PyTorch version. ``use_fused_mwt_tail`` and
-    ``backbone_factory`` are refused by ``DeepfakeDetector`` until ported.
+    takes the kernel's plain PyTorch version. ``backbone_factory`` (a JAX
+    test hook) is refused by ``DeepfakeDetector``.
     ``param_dtype``, ``remat_frames``, ``fused_eval_pyramid``,
     ``fused_train_pyramid`` and ``use_s2d_stem`` choose among formulations of
     the same math in the JAX package; the port has one formulation each and
@@ -103,7 +103,7 @@ class ModelConfig:
     remat_frames: bool = True
     use_pallas_dwt: bool = False      # K1: Haar DWT kernel (ops/haar.py)
     use_pallas_dama: bool = False     # K4: fused cross-attention kernel
-    use_fused_mwt_tail: bool = False  # K3: not ported yet; must stay False
+    use_fused_mwt_tail: bool = False  # K3: Winograd multiscale_fusion (ops/mwt_tail.py)
     fused_eval_pyramid: Any = "level"
     fused_train_pyramid: bool = False
     use_pallas_dwse: bool = False     # K2: depthwise+BN+SiLU+mean kernel

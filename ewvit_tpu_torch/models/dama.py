@@ -32,7 +32,8 @@ class DAMA(nn.Module):
                                 pos_mode=cfg.pos_mode,
                                 backbone_spec=cfg.v2s_spec)
         self.mwt = MWT(cfg.in_channels, d, cfg.levels,
-                       use_pallas_dwt=cfg.use_pallas_dwt)
+                       use_pallas_dwt=cfg.use_pallas_dwt,
+                       use_fused_tail=cfg.use_fused_mwt_tail)
         self.cross_att = BidirectionalCrossTransformer(
             d, depth=2, heads=cfg.num_heads, dim_head=d // cfg.num_heads,
             dropout=0.1, use_fused=cfg.use_pallas_dama)

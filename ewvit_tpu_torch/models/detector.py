@@ -33,8 +33,6 @@ from ewvit_tpu_torch.ops.preprocess import preprocess_batch
 class DeepfakeDetector(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.use_fused_mwt_tail:
-            raise NotImplementedError("use_fused_mwt_tail (K3) is not ported yet")
         if cfg.backbone_factory is not None:
             raise NotImplementedError("backbone_factory is a JAX-package test hook")
         self.cfg = cfg

@@ -54,6 +54,14 @@ _SIGNATURES = {
         "ewvit_fused_bidir_xattn":
             [_C_VOID_P] * 6 + [_C_INT] * 5 + [_C_VOID_P],
     },
+    "winograd": {
+        # ys (array of level pointers), u, bias, out, n, levels, c, h, w,
+        # dtype, stream
+        "ewvit_fused_multiscale_winograd":
+            [ctypes.POINTER(_C_VOID_P)] + [_C_VOID_P] * 3 + [_C_INT] * 6 + [_C_VOID_P],
+        # x, u, out, n, cin, cout, h, w, dtype, stream
+        "ewvit_conv3x3_winograd": [_C_VOID_P] * 3 + [_C_INT] * 6 + [_C_VOID_P],
+    },
 }
 
 # dtype codes shared with csrc/common.cuh
@@ -63,6 +71,8 @@ LAUNCHES: Dict[str, int] = {
     "haar_dwt2d": 0,
     "dw_bn_silu_mean": 0,
     "fused_bidirectional_cross_attention": 0,
+    "fused_multiscale_winograd": 0,
+    "conv3x3_winograd": 0,
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

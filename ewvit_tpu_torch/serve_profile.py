@@ -1,9 +1,12 @@
 """Where a served request's time goes on the GPU.
 
     python3 -m ewvit_tpu_torch.serve_profile [--requests 3] [--trace PATH]
+                                             [--fused-mwt-tail]
 
 Builds the full-width dynamic detector (``ModelConfig()`` with the three
-kernel flags on, bf16) with seeded, BN-calibrated random weights
+kernel flags on, bf16; ``--fused-mwt-tail`` adds ``use_fused_mwt_tail``, so
+the MWT's multiscale_fusion runs as K3) with seeded, BN-calibrated random
+weights
 (``random_detector``), serves ``[2, 40, 224, 224, 3]`` uint8 requests and
 prints:
 
@@ -81,19 +84,23 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--requests", type=int, default=3)
     ap.add_argument("--trace", default=None, help="write a Chrome trace here")
+    ap.add_argument("--fused-mwt-tail", action="store_true",
+                    help="serve with use_fused_mwt_tail (K3) on")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("serve_profile needs a CUDA GPU")
 
     cfg = ModelConfig().replace(use_pallas_dwt=True, use_pallas_dwse=True,
-                                use_pallas_dama=True)
+                                use_pallas_dama=True,
+                                use_fused_mwt_tail=args.fused_mwt_tail)
     engine = InferenceEngine(random_detector(cfg, device="cuda", seed=0),
                              frame_chunk=32, device="cuda")
     rng = np.random.default_rng(0)
     reqs = [rng.integers(0, 256, (2, 40, 224, 224, 3), dtype=np.uint8)
             for _ in range(args.requests)]
     engine.warmup(2, 40)
-    print(f"[profile] {torch.cuda.get_device_name(0)}")
+    print(f"[profile] {torch.cuda.get_device_name(0)}; use_fused_mwt_tail="
+          f"{cfg.use_fused_mwt_tail}")
 
     lat = []
     for clips in reqs:
