@@ -56,11 +56,20 @@ from ewvit_tpu_torch.ops.fused_attention import (
 from ewvit_tpu_torch.ops.haar import haar_dwt2d, haar_dwt2d_plain
 from ewvit_tpu_torch.ops.mwt_tail import (
     fused_multiscale_winograd,
+    fused_multiscale_winograd_packed,
     fused_multiscale_winograd_plain,
     multiscale_winograd_u,
+    pack_tail,
 )
 from ewvit_tpu_torch.ops.preprocess import preprocess_batch
-from ewvit_tpu_torch.ops.winograd import conv3x3_winograd, conv3x3_winograd_plain
+from ewvit_tpu_torch.ops.winograd import (
+    conv3x3_winograd,
+    conv3x3_winograd_packed,
+    conv3x3_winograd_plain,
+    halo_route,
+    pack_u,
+    transform_weights,
+)
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
@@ -167,9 +176,15 @@ def phase_build():
     logs = extension.build_all()
     print(f"[build] {len(logs)} kernel libraries ready in {time.perf_counter() - t:.1f} s")
     for stem, log in logs.items():
+        fn = ""
         for line in log.splitlines():
+            if "Compiling entry function" in line or "Function properties for" in line:
+                fn = line.replace("'", " ").split()[-1 if "properties" in line else -3]
             if "registers" in line or "spill" in line:
-                print(f"[build] {stem}: {line.strip()}")
+                # the bf16 Winograd kernel (namespace hop) must not spill
+                label = {"3hop": "bf16 wgmma kernel", "3f32": "fp32 kernel"}.get(
+                    next((k for k in ("3hop", "3f32") if k in fn), ""), fn[:48])
+                print(f"[build] {stem}: {label}: {line.strip()}")
 
 
 class Timings:
@@ -292,9 +307,13 @@ def winograd_kernels(dev, g):
     """K3 at the MWT's full-width multiscale_fusion (3 levels [64, 128, 112,
     112] -> 128), 1 launch per chunk; K5 at the MWT's two stride-1 conv
     shapes (hf_fusion 54 -> 128, multiscale_fusion 384 -> 128), one call
-    each. Bounds use the bf16 tensor-core peak: the work is matrix products
-    the tensor cores can do. Operations count the 16 transform-domain
-    products only (2*16*tiles*Cin*Cout)."""
+    each; then bf16 edge shapes that the 8 x 8-tile block does not divide,
+    on both halo copy widths (8-byte, and 4-byte where W is not a multiple
+    of 4).
+    U is packed outside the timed calls (the served MWT keeps it), as the
+    library yardstick's folded weight is. Bounds use the bf16 tensor-core
+    peak: the work is matrix products the tensor cores can do. Operations
+    count the 16 transform-domain products only (2*16*tiles*Cin*Cout)."""
     side, c, levels = 112, 128, 3
     tiles = N_ROWS * (side // 2) ** 2
     report = []
@@ -313,6 +332,8 @@ def winograd_kernels(dev, g):
         out = fused_multiscale_winograd(ys, u, bias)
         ref = fused_multiscale_winograd_plain(ys, u, bias)
         what = f"fused_multiscale_winograd {levels} x {tuple(ys[0].shape)} {dtype}"
+        if dtype == torch.bfloat16:
+            what += f" ({halo_route(ys[0])} halo)"
         errs.append(max_err(out, ref, what=what, **tol))
         print(f"[kernels] {what}: max abs err {errs[-1]:.3e} (tol {tol}; |ref| max "
               f"{ref.float().abs().max().item():.3e})")
@@ -320,20 +341,23 @@ def winograd_kernels(dev, g):
             cat = torch.cat(ys, dim=1)
             w_fold = (wd.float() * scale[:, None, None, None]).to(dtype)
             b_lib = bias.to(dtype)
+            up, b32 = pack_tail(u, bias)
             # library yardstick: one cuDNN conv on the concatenated levels,
             # folded weight and bias; it leaves out the ReLU
-            tm.add(1, lambda: fused_multiscale_winograd(ys, u, bias),
+            tm.add(1, lambda: fused_multiscale_winograd_packed(ys, up, b32),
                    lambda: fused_multiscale_winograd_plain(ys, u, bias),
                    lambda: F.conv2d(cat, w_fold, b_lib, padding=1),
                    nb=nbytes(*ys, out, u, bias), ops=2 * 16 * levels * tiles * c * c)
             del cat
         del ys, out, ref
+    edge_errs = winograd_edges(dev, g)
+    errs += edge_errs["k3"]
     report.append(tm.entry(
         name="fused_multiscale_winograd", route="cuda",
         source="ewvit_tpu_torch/csrc/winograd.cu",
         replaces="ewvit_tpu/ops/mwt_tail.py:108", max_abs_err=max(errs)))
 
-    errs, tm = [], Timings(BF16_MMA_OPS_PER_S)
+    errs, tm = list(edge_errs["k5"]), Timings(BF16_MMA_OPS_PER_S)
     for cin in (54, 384):
         wk = torch.randn(c, cin, 3, 3, device=dev, generator=g) / (9 * cin) ** 0.5
         for dtype, tol in ((torch.float32, WINO_F32_TOL), (torch.bfloat16, BF16_TOL)):
@@ -346,8 +370,9 @@ def winograd_kernels(dev, g):
             print(f"[kernels] {what}: max abs err {errs[-1]:.3e} (tol {tol}; |ref| max "
                   f"{ref.float().abs().max().item():.3e})")
             if dtype == torch.bfloat16:
+                up = pack_u(transform_weights(wd).reshape(1, 16, cin, c), dtype)
                 before = dict(tm.t)
-                tm.add(1, lambda: conv3x3_winograd(x, wd),
+                tm.add(1, lambda: conv3x3_winograd_packed(x, up, c),
                        lambda: conv3x3_winograd_plain(x, wd),
                        lambda: F.conv2d(x, wd, padding=1),
                        nb=nbytes(x, wd, out), ops=2 * 16 * tiles * cin * c)
@@ -362,6 +387,42 @@ def winograd_kernels(dev, g):
         replaces="ewvit_tpu/ops/winograd_pallas.py:45", max_abs_err=max(errs)))
     torch.cuda.empty_cache()
     return report
+
+
+def winograd_edges(dev, g):
+    """bf16 K5 and K3 at shapes the 8 x 8-tile, 128-channel block leaves
+    ragged (H/2, W/2 not multiples of 8; Cin not a multiple of 64; Cout not
+    a multiple of 64), on the halo copy width each is meant to take.
+    Returns the errors (one bf16 rounding) of each kernel."""
+    errs = {"k5": [], "k3": []}
+    for shape, cout, route in (((2, 54, 30, 22), 7, "cp.async 4-byte"),
+                               ((2, 54, 30, 24), 7, "cp.async 8-byte")):
+        x = torch.randn(*shape, device=dev, generator=g).to(torch.bfloat16)
+        wk = (torch.randn(cout, shape[1], 3, 3, device=dev, generator=g)
+              / (9 * shape[1]) ** 0.5).to(torch.bfloat16)
+        if halo_route(x) != route:
+            fail(f"conv3x3_winograd {shape}: halo route {halo_route(x)}, expected {route}")
+        what = f"conv3x3_winograd {shape} -> {cout} bf16 ({route} halo)"
+        errs["k5"].append(max_err(conv3x3_winograd(x, wk), conv3x3_winograd_plain(x, wk),
+                                  what=what, **BF16_TOL))
+        print(f"[kernels] {what}: max abs err {errs['k5'][-1]:.3e} (tol {BF16_TOL})")
+    for shape, route in (((4, 128, 20, 28), "cp.async 8-byte"),
+                         ((4, 128, 20, 30), "cp.async 4-byte")):
+        c = shape[1]
+        ys = [torch.randn(*shape, device=dev, generator=g).to(torch.bfloat16) for _ in range(3)]
+        u = multiscale_winograd_u(torch.randn(c, 3 * c, 3, 3, device=dev, generator=g)
+                                  / (27 * c) ** 0.5, torch.ones(c, device=dev), 3,
+                                  torch.bfloat16)
+        bias = 0.1 * torch.randn(c, device=dev, generator=g)
+        if halo_route(ys[0]) != route:
+            fail(f"fused_multiscale_winograd {shape}: halo route {halo_route(ys[0])}, "
+                 f"expected {route}")
+        what = f"fused_multiscale_winograd 3 x {shape} bf16 ({route} halo)"
+        errs["k3"].append(max_err(fused_multiscale_winograd(ys, u, bias),
+                                  fused_multiscale_winograd_plain(ys, u, bias), what=what,
+                                  **BF16_TOL))
+        print(f"[kernels] {what}: max abs err {errs['k3'][-1]:.3e} (tol {BF16_TOL})")
+    return errs
 
 
 def haar_bank(c, dtype, dev):
@@ -453,6 +514,11 @@ def phase_serve():
         fail(f"fused_multiscale_winograd launched {n_k3} times for {chunks} chunks")
     if launches["three_flags"]["fused_multiscale_winograd"]:
         fail("fused_multiscale_winograd launched on the three-flag path")
+    # the fused tail folds and packs U once per model (at cast_for_inference),
+    # never per request
+    for name, n in launches.items():
+        if n["winograd_u_fold"]:
+            fail(f"U was folded {n['winograd_u_fold']} times while serving {name}")
     print("[serve] latency ms side by side (three_flags | fused_mwt_tail): " + ", ".join(
         f"{a:.3f} | {b:.3f}" for a, b in zip(served["three_flags"]["lat"],
                                              served["fused_mwt_tail"]["lat"])))

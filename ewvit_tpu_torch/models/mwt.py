@@ -22,7 +22,13 @@ outputs (never concatenated), under the JAX package's gate
 (ewvit_tpu/models/mwt.py:242-245): ``H/2`` and ``W/2`` even and
 ``H/4 >= 4``; otherwise the direct conv runs. ``freq_conv`` stays the
 ordinary stride-2 conv: the JAX package's ``freq_from_phases`` only undoes
-its Mosaic phase layout. Same parameters either way.
+its Mosaic phase layout. Same parameters either way. U (BN scale folded in)
+and the fp32 bias are computed once in eval mode, at the first call or from
+``serving.cast_for_inference``, and kept packed for the kernel
+(``_tail_weights``); they are dropped on ``train()`` and on
+``load_state_dict``, and recomputed when the compute dtype, the device or
+the conv weight tensor changes (a move or a cast makes a new one). (The JAX
+package folds U inside its jitted graph.)
 
 Module names follow the reference: ``hf_conv.seperate.i.{0,1}``,
 ``hf_conv.fusion.{0,1}``, ``multiscale_fusion.{0,1}``, ``freq_conv.{0,1}``,
@@ -37,7 +43,12 @@ import torch.nn.functional as F
 
 from ewvit_tpu_torch.models.norm import BatchNorm2d
 from ewvit_tpu_torch.ops.haar import haar_dwt2d, haar_dwt2d_plain
-from ewvit_tpu_torch.ops.mwt_tail import fused_multiscale_winograd, multiscale_winograd_u
+from ewvit_tpu_torch.ops import extension
+from ewvit_tpu_torch.ops.mwt_tail import (
+    fused_multiscale_winograd_packed,
+    multiscale_winograd_u,
+    pack_tail,
+)
 
 
 class ConvBNReLU(nn.Sequential):
@@ -70,6 +81,15 @@ class MWT(nn.Module):
             nn.Conv2d(dama_dim, dama_dim, 3, 2, padding=1),
             BatchNorm2d(dama_dim, eps=1e-5, momentum=0.1),
             nn.ReLU())
+        self._tail = None      # (key, packed U, fp32 bias) of the fused tail
+
+    def train(self, mode: bool = True):
+        self._tail = None
+        return super().train(mode)
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        self._tail = None
+        super()._load_from_state_dict(*args, **kwargs)
 
     def _hf_sep(self, hf):
         """The three shared hf_sep stacks on their channel slices, as one
@@ -83,13 +103,25 @@ class MWT(nn.Module):
         shift = torch.cat([f[1] for f in folded]).to(y.dtype)[:, None, None]
         return F.relu(torch.addcmul(shift, y, scale))
 
+    @torch.no_grad()
+    def _tail_weights(self, dtype: torch.dtype):
+        """multiscale_fusion's U (BN scale folded in) in ``dtype`` and its fp32
+        bias (conv bias and BN shift), packed by ``pack_tail`` for the
+        weights' device; computed on the first call and kept (eval only)."""
+        conv, bn = self.multiscale_fusion[0], self.multiscale_fusion[1]
+        key = (dtype, conv.weight.device, conv.weight.data_ptr())
+        if self._tail is None or self._tail[0] != key:
+            scale, shift = bn.folded()
+            u = multiscale_winograd_u(conv.weight, scale, self.levels, dtype)
+            self._tail = (key, *pack_tail(u, conv.bias.float() * scale + shift))
+            if u.is_cuda:
+                extension.LAUNCHES["winograd_u_fold"] += 1
+        return self._tail[1], self._tail[2]
+
     def _fused_multiscale(self, highs):
         """multiscale_fusion (conv + bias, eval BN, ReLU) as K3 on the level
-        maps: BN scale folded into U, conv bias and BN shift into one bias."""
-        conv, bn = self.multiscale_fusion[0], self.multiscale_fusion[1]
-        scale, shift = bn.folded()
-        u = multiscale_winograd_u(conv.weight, scale, self.levels, highs[0].dtype)
-        return fused_multiscale_winograd(highs, u, conv.bias.float() * scale + shift)
+        maps, with the kept U and bias."""
+        return fused_multiscale_winograd_packed(highs, *self._tail_weights(highs[0].dtype))
 
     def forward(self, x):
         if self.training:

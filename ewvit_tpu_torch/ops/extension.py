@@ -36,6 +36,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-lineinfo", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
+    # EWVIT_NVCC_EXTRA: more flags for an ablation build (winograd_ablation.py);
+    # they enter the library's hash like the rest
+    *os.environ.get("EWVIT_NVCC_EXTRA", "").split(),
 )
 
 # source stem -> C entry points it exports (argtypes set at load time)
@@ -61,6 +64,8 @@ _SIGNATURES = {
             [ctypes.POINTER(_C_VOID_P)] + [_C_VOID_P] * 3 + [_C_INT] * 6 + [_C_VOID_P],
         # x, u, out, n, cin, cout, h, w, dtype, stream
         "ewvit_conv3x3_winograd": [_C_VOID_P] * 3 + [_C_INT] * 6 + [_C_VOID_P],
+        # x, w: bytes per copy of the bf16 kernel's halo interior (8 or 4)
+        "ewvit_winograd_halo_copy_bytes": [_C_VOID_P, _C_INT],
     },
 }
 
@@ -73,6 +78,10 @@ LAUNCHES: Dict[str, int] = {
     "fused_bidirectional_cross_attention": 0,
     "fused_multiscale_winograd": 0,
     "conv3x3_winograd": 0,
+    # not a kernel: U folds and packs for K3 on the card (models/mwt.py), each
+    # several PyTorch launches; the served fused tail keeps U, so a request
+    # adds none
+    "winograd_u_fold": 0,
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

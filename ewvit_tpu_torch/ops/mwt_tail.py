@@ -25,7 +25,9 @@ writes the dense output, so the JAX package's ``phase_conv_paddings`` and
 - :func:`fused_multiscale_winograd_plain` -- plain PyTorch version.
 - :func:`fused_multiscale_winograd` -- K3, the hand-written kernel
   ``csrc/winograd.cu`` (the core it shares with K5) for CUDA tensors; CPU
-  tensors take the plain version.
+  tensors take the plain version. It packs U, then calls
+- :func:`fused_multiscale_winograd_packed` -- K3 on U and bias prepared once
+  by :func:`pack_tail` (the MWT keeps them between calls).
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from ewvit_tpu_torch.ops.winograd import (
     input_transform,
     output_transform,
     pack_u,
+    packed_u_shape,
     transform_weights,
 )
 
@@ -92,20 +95,48 @@ def fused_multiscale_winograd_plain(ys: Sequence[torch.Tensor], u: torch.Tensor,
     return torch.relu(out).to(cdt)
 
 
-def fused_multiscale_winograd(ys: Sequence[torch.Tensor], u: torch.Tensor,
-                              bias: torch.Tensor) -> torch.Tensor:
-    """K3 on CUDA tensors, :func:`fused_multiscale_winograd_plain` on CPU tensors."""
+def pack_tail(u: torch.Tensor, bias: torch.Tensor):
+    """U ``[L, 16, C, C]`` and bias ``[C]`` -> ``(up, b32)`` for
+    :func:`fused_multiscale_winograd_packed`: on the card U packed for the
+    kernel (:func:`pack_u`), on the CPU U as it is (the plain version's
+    layout); the bias in fp32."""
+    b32 = bias.to(torch.float32).contiguous()
+    return (u if u.device.type == "cpu" else pack_u(u, u.dtype)), b32
+
+
+def fused_multiscale_winograd_packed(ys: Sequence[torch.Tensor], up: torch.Tensor,
+                                     b32: torch.Tensor) -> torch.Tensor:
+    """K3 on CUDA tensors with ``(up, b32)`` from :func:`pack_tail`;
+    :func:`fused_multiscale_winograd_plain` on CPU tensors."""
     if ys[0].device.type == "cpu":
-        return fused_multiscale_winograd_plain(ys, u, bias)
-    _check(ys, u, bias)
+        return fused_multiscale_winograd_plain(ys, up, b32)
+    n, c, h, w = ys[0].shape
+    if not 1 <= len(ys) <= MAX_LEVELS or any(
+            tuple(y.shape) != (n, c, h, w) or y.dtype != ys[0].dtype for y in ys):
+        raise ValueError(f"expected 1 to {MAX_LEVELS} level maps of one shape and dtype")
+    if h % 2 or w % 2:
+        raise ValueError(f"Winograd F(2x2,3x3) needs even H and W, got {(h, w)}")
     for lvl, y in enumerate(ys):
         extension.check_cuda_tensor(y, f"ys[{lvl}]")
-    n, c, h, w = ys[0].shape
-    up = pack_u(u, ys[0].dtype)
-    b32 = bias.to(torch.float32).contiguous()
+    if tuple(up.shape) != packed_u_shape(len(ys), c, c, ys[0].dtype):
+        raise ValueError(f"packed U has shape {tuple(up.shape)}, expected "
+                         f"{packed_u_shape(len(ys), c, c, ys[0].dtype)}")
+    extension.check_cuda_tensor(up, "up", ys[0].dtype)
+    extension.check_cuda_tensor(b32, "b32", torch.float32)
+    if tuple(b32.shape) != (c,):
+        raise ValueError(f"expected bias [{c}], got {tuple(b32.shape)}")
     out = torch.empty_like(ys[0])
     ptrs = (ctypes.c_void_p * len(ys))(*[y.data_ptr() for y in ys])
     extension.launch("winograd", "ewvit_fused_multiscale_winograd",
                      "fused_multiscale_winograd", ptrs, up.data_ptr(), b32.data_ptr(),
                      out.data_ptr(), n, len(ys), c, h, w, extension.dtype_code(ys[0]))
     return out
+
+
+def fused_multiscale_winograd(ys: Sequence[torch.Tensor], u: torch.Tensor,
+                              bias: torch.Tensor) -> torch.Tensor:
+    """K3 on CUDA tensors, :func:`fused_multiscale_winograd_plain` on CPU tensors."""
+    if ys[0].device.type == "cpu":
+        return fused_multiscale_winograd_plain(ys, u, bias)
+    _check(ys, u, bias)
+    return fused_multiscale_winograd_packed(ys, *pack_tail(u.to(ys[0].dtype), bias))

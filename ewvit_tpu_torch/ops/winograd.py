@@ -22,9 +22,11 @@ inverse transform in fp32; one rounding of the output.
 - :func:`conv3x3_winograd_plain` -- plain PyTorch version of K5.
 - :func:`conv3x3_winograd` -- K5, the hand-written kernel ``csrc/winograd.cu``
   for a CUDA tensor; a CPU tensor takes the plain version.
-- :func:`pack_u` -- U ``[L, 16, Cin, Cout]`` -> the kernel's layout
-  ``[L, 16, Cout_pad, Cin_pad]`` (input channel innermost, permuted in 16s;
-  Cout padded to a multiple of 128 and Cin to 32 with zeros).
+- :func:`pack_u` -- U ``[L, 16, Cin, Cout]`` -> the kernel's layout for the
+  dtype (bf16: one swizzled 128 x 64 tile per level, chunk of 64 input
+  channels, transform position and block of 128 output channels; fp32:
+  ``[L, 16, Cout_pad, Cin_pad]``).
+- :func:`conv3x3_winograd_packed` -- K5's launch on a U already packed.
 """
 
 from __future__ import annotations
@@ -45,9 +47,9 @@ G = torch.tensor([[1, 0, 0],
 AT = torch.tensor([[1, 1, 1, 0],
                    [0, 1, -1, -1]], dtype=torch.float32)
 
-# csrc/winograd.cu block sizes: output channels per block, input channels
-# per step. pack_u pads U to them.
-COUT_BLOCK, CIN_STEP = 128, 32
+# csrc/winograd.cu block sizes: output channels per block, and input channels
+# per step of the bf16 and the fp32 kernel. pack_u pads U to them.
+COUT_BLOCK, CIN_CHUNK, CIN_STEP_F32 = 128, 64, 32
 
 
 def _g3(t: torch.Tensor, dim: int) -> torch.Tensor:
@@ -124,21 +126,83 @@ def conv3x3_winograd_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return output_transform(m, n, h // 2, wd // 2).to(x.dtype)
 
 
-def pack_u(u: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """U ``[L, 16, Cin, Cout]`` -> ``[L, 16, Cout_pad, Cin_pad]`` in ``dtype``,
-    zero-padded to the kernel's block sizes (csrc/winograd.cu).
+def packed_u_shape(levels: int, cin: int, cout: int, dtype: torch.dtype) -> tuple:
+    """Shape of :func:`pack_u`'s result for U ``[levels, 16, cin, cout]``."""
+    nco = -(-cout // COUT_BLOCK)
+    if dtype == torch.float32:
+        return (levels, 16, nco * COUT_BLOCK, -(-cin // CIN_STEP_F32) * CIN_STEP_F32)
+    return (levels, -(-cin // CIN_CHUNK), 16, nco, COUT_BLOCK, CIN_CHUNK)
 
-    Within each group of 16 input channels the pairs are stored in the order
-    (0,1), (8,9), (2,3), (10,11), ..., (6,7), (14,15): a tensor-core B
-    fragment's two pairs, k = 2t and 2t + 8, are then one 8-byte load.
+
+def _swizzle_index(device) -> torch.Tensor:
+    """Gather index of the 128-byte swizzle over one 128 x 64 bf16 tile: the
+    16-byte chunk j of row r is stored at chunk j ^ (r % 8) (an involution,
+    so the same index gathers either way)."""
+    r = torch.arange(COUT_BLOCK, device=device)[:, None, None]
+    j = torch.arange(8, device=device)[None, :, None]
+    e = torch.arange(8, device=device)[None, None, :]
+    return (r * CIN_CHUNK + (j ^ (r % 8)) * 8 + e).reshape(-1)
+
+
+def pack_u(u: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """U ``[L, 16, Cin, Cout]`` -> the kernel's layout in ``dtype``, zero-padded
+    to its block sizes (csrc/winograd.cu).
+
+    bf16: ``[L, Cin_pad / 64, 16, Cout_pad / 128, 128, 64]``, one contiguous
+    16 KB tile per (level, chunk of 64 input channels, transform position,
+    block of 128 output channels): row = output channel, 64 input channels
+    per row (K-major, the wgmma B operand), the rows' 16-byte chunks
+    swizzled by 128 bytes. Within each 8 input channels, stored position
+    ``2q + e`` holds channel ``q + 4e`` (the order in which the kernel's
+    transform stores V).
+
+    fp32: ``[L, 16, Cout_pad, Cin_pad]``, Cin padded to 32; within each 16
+    input channels the pairs are stored in the order (0,1), (8,9), (2,3),
+    (10,11), ..., (6,7), (14,15).
     """
     lv, _, cin, cout = u.shape
-    cout_pad, cin_pad = -(-cout // COUT_BLOCK) * COUT_BLOCK, -(-cin // CIN_STEP) * CIN_STEP
-    out = torch.zeros(lv, 16, cout_pad, cin_pad, dtype=dtype, device=u.device)
-    out[:, :, :cout, :cin] = u.transpose(2, 3)
-    # [.., group, half (k < 8 | k >= 8), pair, element] -> [.., group, pair, half, element]
-    return out.reshape(lv, 16, cout_pad, cin_pad // 16, 2, 4, 2).transpose(-3, -2).reshape(
-        lv, 16, cout_pad, cin_pad)
+    shape = packed_u_shape(lv, cin, cout, dtype)
+    if dtype == torch.float32:
+        _, _, cout_pad, cin_pad = shape
+        out = torch.zeros(lv, 16, cout_pad, cin_pad, dtype=dtype, device=u.device)
+        out[:, :, :cout, :cin] = u.transpose(2, 3)
+        # [.., group, half (k < 8 | k >= 8), pair, element] -> [.., group, pair, half, element]
+        return out.reshape(lv, 16, cout_pad, cin_pad // 16, 2, 4, 2).transpose(-3, -2).reshape(
+            lv, 16, cout_pad, cin_pad)
+    _, kch, _, nco, _, _ = shape
+    full = torch.zeros(lv, 16, kch * CIN_CHUNK, nco * COUT_BLOCK, dtype=dtype, device=u.device)
+    full[:, :, :cin, :cout] = u
+    # [L, 16, kc, 8 groups, e, q, nco, co] -> [L, kc, 16, nco, co, group, q, e]
+    t = full.reshape(lv, 16, kch, 8, 2, 4, nco, COUT_BLOCK).permute(0, 2, 1, 6, 7, 3, 5, 4)
+    t = t.reshape(lv, kch, 16, nco, COUT_BLOCK * CIN_CHUNK)
+    return t[..., _swizzle_index(u.device)].reshape(shape).contiguous()
+
+
+def conv3x3_winograd_packed(x: torch.Tensor, up: torch.Tensor, cout: int) -> torch.Tensor:
+    """K5's launch on a CUDA tensor ``x`` ``[N, Cin, H, W]`` with U already
+    packed for ``x``'s dtype (:func:`pack_u` of one level)."""
+    extension.check_cuda_tensor(x, "x")
+    n, cin, h, wd = x.shape
+    if h % 2 or wd % 2:
+        raise ValueError(f"Winograd F(2x2,3x3) needs even H and W, got {(h, wd)}")
+    if tuple(up.shape) != packed_u_shape(1, cin, cout, x.dtype):
+        raise ValueError(f"packed U has shape {tuple(up.shape)}, expected "
+                         f"{packed_u_shape(1, cin, cout, x.dtype)}")
+    extension.check_cuda_tensor(up, "up", x.dtype)
+    out = torch.empty(n, cout, h, wd, dtype=x.dtype, device=x.device)
+    extension.launch("winograd", "ewvit_conv3x3_winograd", "conv3x3_winograd",
+                     x.data_ptr(), up.data_ptr(), out.data_ptr(), n, cin, cout, h, wd,
+                     extension.dtype_code(x))
+    return out
+
+
+def halo_route(x: torch.Tensor) -> str:
+    """How the bf16 kernel copies a CUDA map ``x`` ``[N, C, H, W]``'s halo:
+    ``"cp.async 8-byte"`` (W a multiple of 4, 8-byte aligned base) or
+    ``"cp.async 4-byte"``, as the kernel decides."""
+    extension.check_cuda_tensor(x, "x")
+    nb = extension.library("winograd").ewvit_winograd_halo_copy_bytes(x.data_ptr(), x.shape[3])
+    return f"cp.async {nb}-byte"
 
 
 def conv3x3_winograd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -146,12 +210,6 @@ def conv3x3_winograd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return conv3x3_winograd_plain(x, w)
     _check(x, w)
-    extension.check_cuda_tensor(x, "x")
-    n, cin, h, wd = x.shape
-    cout = w.shape[0]
-    u = pack_u(transform_weights(w).reshape(1, 16, cin, cout), x.dtype)
-    out = torch.empty(n, cout, h, wd, dtype=x.dtype, device=x.device)
-    extension.launch("winograd", "ewvit_conv3x3_winograd", "conv3x3_winograd",
-                     x.data_ptr(), u.data_ptr(), out.data_ptr(), n, cin, cout, h, wd,
-                     extension.dtype_code(x))
-    return out
+    cin, cout = w.shape[1], w.shape[0]
+    up = pack_u(transform_weights(w).reshape(1, 16, cin, cout), x.dtype)
+    return conv3x3_winograd_packed(x, up, cout)

@@ -24,14 +24,20 @@ import torch.nn as nn
 
 from ewvit_tpu_torch.device import DeviceLike, compute_dtype, resolve_device
 from ewvit_tpu_torch.models.detector import DeepfakeDetector, video_forward
+from ewvit_tpu_torch.models.mwt import MWT
 from ewvit_tpu_torch.ops.preprocess import preprocess_batch
 
 
 def cast_for_inference(model: nn.Module, dtype: torch.dtype) -> nn.Module:
-    """Cast conv and linear weights and biases to ``dtype`` in place."""
+    """Cast conv and linear weights and biases to ``dtype`` in place, then
+    fold and pack the fused MWT tail's U once (eval mode)."""
     for m in model.modules():
         if isinstance(m, (nn.Conv2d, nn.Linear)):
             m.to(dtype)
+    if not model.training:
+        for m in model.modules():
+            if isinstance(m, MWT) and m.use_fused_tail:
+                m._tail_weights(dtype)
     return model
 
 

@@ -32,8 +32,10 @@ from ewvit_tpu_torch.ops import extension
 from ewvit_tpu_torch.ops import winograd as pw
 from ewvit_tpu_torch.ops.mwt_tail import (
     fused_multiscale_winograd,
+    fused_multiscale_winograd_packed,
     fused_multiscale_winograd_plain,
     multiscale_winograd_u,
+    pack_tail,
 )
 from ewvit_tpu_torch.utils import convert
 from test_torch_port_model import B, CHUNK, JCFG, K, PCFG, _fill
@@ -208,3 +210,94 @@ def test_cpu_wrappers_are_plain_and_reject_odd_sizes():
     logical = torch.zeros(2, 16, 128, 32)
     logical[:, :, :4, :4] = u.transpose(2, 3)         # [L, 16, Cout, Cin]
     torch.testing.assert_close(packed, logical[..., order], atol=0, rtol=0)
+
+
+# ------------------------------------- (g) the bf16 kernel's packed U layout
+
+
+@pytest.mark.parametrize("levels", [1, 3])
+@pytest.mark.parametrize("cin,cout", [(54, 7), (54, 128), (128, 7), (128, 128)])
+def test_pack_u_bf16_layout(levels, cin, cout):
+    """pack_u's bf16 layout against an index formula written out here: per
+    (level, chunk of 64 input channels, transform position, block of 128
+    output channels) a 128 x 64 tile, row = output channel; channel
+    8g + 4e + q of a chunk at position 2q + e of the row's 16-byte chunk g,
+    which is stored at chunk g ^ (row % 8); zeros in the padding."""
+    g = np.random.default_rng(7)
+    u = g.standard_normal((levels, 16, cin, cout)).astype(np.float32)
+    got = pw.pack_u(torch.from_numpy(u), torch.bfloat16)
+    kch, nco = -(-cin // 64), -(-cout // 128)
+    assert tuple(got.shape) == (levels, kch, 16, nco, 128, 64) and got.is_contiguous()
+    ub = torch.from_numpy(u).to(torch.bfloat16).float().numpy()
+    want = np.zeros((levels, kch, 16, nco, 128 * 64), np.float32)
+    ci, co = np.meshgrid(np.arange(cin), np.arange(cout), indexing="ij")
+    grp, r = (ci % 64) // 8, ci % 8
+    row = co % 128
+    pos = row * 64 + (grp ^ (row % 8)) * 8 + 2 * (r % 4) + r // 4
+    for lvl in range(levels):
+        for uv in range(16):
+            want[lvl, ci // 64, uv, co // 128, pos] = ub[lvl, uv]
+    np.testing.assert_array_equal(got.float().numpy().reshape(want.shape), want)
+
+
+# --------------------------------------------- (h) the MWT's kept U and bias
+
+
+def test_mwt_keeps_tail_weights(detector_vars):
+    """The fused tail folds U once per model: the kept U and bias equal the
+    per-call fold, the logits equal those of a per-call fold (1e-6; on the
+    CPU both run the same plain arithmetic), and train() and load_state_dict
+    drop them."""
+    _, jvars = detector_vars
+    sd = convert.jax_to_state_dict(jvars, PCFG_TAIL)
+    port = build_detector(PCFG_TAIL, device="cpu", seed=0)
+    port.load_state_dict(sd, strict=True)
+    mwt = port.dama.mwt
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (1, 3, 3, 32, 32)).astype(np.float32))
+    assert mwt._tail is None
+    kept = video_forward(port, x, frame_chunk=CHUNK)["logits"]
+    assert mwt._tail is not None
+    conv, bn = mwt.multiscale_fusion[0], mwt.multiscale_fusion[1]
+    scale, shift = bn.folded()
+    u = multiscale_winograd_u(conv.weight, scale, mwt.levels, torch.float32)
+    _, up, b32 = mwt._tail
+    torch.testing.assert_close(up, u, atol=0, rtol=0)
+    torch.testing.assert_close(b32, conv.bias.float() * scale + shift, atol=0, rtol=0)
+
+    def per_call(dtype):
+        sc, sh = bn.folded()
+        return pack_tail(multiscale_winograd_u(conv.weight, sc, mwt.levels, dtype),
+                         conv.bias.float() * sc + sh)
+
+    mwt._tail_weights = per_call
+    try:
+        fresh = video_forward(port, x, frame_chunk=CHUNK)["logits"]
+    finally:
+        del mwt._tail_weights
+    np.testing.assert_allclose(kept.numpy(), fresh.numpy(), atol=1e-6, rtol=0)
+
+    port.train()
+    assert mwt._tail is None
+    port.eval()
+    video_forward(port, x, frame_chunk=CHUNK)
+    assert mwt._tail is not None
+    port.load_state_dict(sd, strict=True)
+    assert mwt._tail is None
+
+
+def test_cpu_packed_wrappers_launch_nothing():
+    g = np.random.default_rng(6)
+    ys = [torch.from_numpy(g.standard_normal((1, 4, 8, 6)).astype(np.float32))
+          for _ in range(3)]
+    u = multiscale_winograd_u(torch.from_numpy(g.standard_normal(
+        (4, 12, 3, 3)).astype(np.float32)), torch.ones(4), 3, torch.float32)
+    bias = torch.from_numpy(g.standard_normal(4).astype(np.float32))
+    before = dict(extension.LAUNCHES)
+    up, b32 = pack_tail(u, bias)
+    assert up is u and b32.dtype == torch.float32     # the CPU keeps the plain layout
+    torch.testing.assert_close(fused_multiscale_winograd_packed(ys, up, b32),
+                               fused_multiscale_winograd_plain(ys, u, bias), atol=0, rtol=0)
+    assert extension.LAUNCHES == before
+    with pytest.raises(ValueError, match="CUDA"):
+        pw.conv3x3_winograd_packed(ys[0], pw.pack_u(u[:1], torch.float32), 4)
