@@ -12,10 +12,11 @@ Phases (any failure raises and the exit code is nonzero):
               sm_90a (one nvcc per source, in parallel), loads them;
 3. kernels -- holds each hand-written kernel against its plain PyTorch version
               on the card at the main path's shapes (K5, in no model, at the
-              MWT's two stride-1 conv shapes), in float32 (TF32 off) and
-              bfloat16, and times kernel, plain version and, where one
-              exists, a single PyTorch call computing the same function, with
-              CUDA events;
+              MWT's two stride-1 conv shapes; K2 also at B0's planes and
+              ragged cases), in float32 (TF32 off) and bfloat16, and times
+              kernel, plain version and, where one exists, a single PyTorch
+              call computing the same function, with CUDA events (K2 also
+              with a cold L2);
 4. serve   -- builds the full-width dynamic detector (ModelConfig(): 224 px,
               V2-S, dama_dim 128, 4 heads, 3 levels) with seeded random
               weights and serves it on two paths: the three kernel flags on
@@ -25,7 +26,8 @@ Phases (any failure raises and the exit code is nonzero):
               and predict_stream (frame_chunk 32: one full chunk and one
               masked tail, 64 flattened rows), reads the counters, checks the
               probabilities, and holds the outputs against the same weights
-              served on the plain (direct-conv) modules in fp32;
+              served on the plain (direct-conv) modules in fp32; a served
+              request must fold no weights (U, K2's depthwise weights);
 5. report  -- one JSON line describing every kernel, then the final line
               {"ok": true, "device": {...}}.
 
@@ -36,6 +38,7 @@ prints no result. It imports nothing of JAX or of the ewvit_tpu package.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -48,7 +51,13 @@ from ewvit_tpu_torch import InferenceEngine, ModelConfig, build_detector, video_
 from ewvit_tpu_torch.models.detector import random_detector
 from ewvit_tpu_torch.device import resolve_device
 from ewvit_tpu_torch.ops import extension
-from ewvit_tpu_torch.ops.dw_se import dw_bn_silu_mean, dw_bn_silu_mean_plain
+from ewvit_tpu_torch.ops.dw_se import (
+    dw_bn_silu_mean,
+    dw_bn_silu_mean_packed,
+    dw_bn_silu_mean_plain,
+    dwse_plan,
+    pack_dwse,
+)
 from ewvit_tpu_torch.ops.fused_attention import (
     fused_bidirectional_cross_attention,
     fused_cross_attention_plain,
@@ -86,6 +95,7 @@ OUT_TOL_F32 = ((1e-3, 1e-3), (1e-3, 0.0))     # fp32 kernels vs fp32 plain modul
 # features by a few per cent of their range (0.08 of ~2.8 measured on H100).
 OUT_TOL_BF16 = ((0.2, 5e-2), (2e-2, 0.0))     # bf16 serving vs fp32 plain modules
 N_ROWS = 64                                # B * chunk on the main path
+COLD_BYTES = 100 << 20     # cold-L2 timing cycles more than this (L2 is 50 MB)
 CYCLES_PER_MS = 2_000_000                  # H100 SM clock is at most ~2 GHz
 
 
@@ -184,7 +194,16 @@ def phase_build():
                 # the bf16 Winograd kernel (namespace hop) must not spill
                 label = {"3hop": "bf16 wgmma kernel", "3f32": "fp32 kernel"}.get(
                     next((k for k in ("3hop", "3f32") if k in fn), ""), fn[:48])
+                if "dw_bn_silu_mean_kernel" in fn:
+                    label = dwse_label(fn)
                 print(f"[build] {stem}: {label}: {line.strip()}")
+
+
+def dwse_label(mangled):
+    """'K2 bf16 k3 strip7 plane7' from K2's mangled instantiation name
+    (plane 0: any plane size)."""
+    k, sw, hw = re.search(r"Li(\d+)ELi(\d+)ELi(\d+)E", mangled).groups()
+    return f"K2 {'bf16' if 'bfloat16' in mangled else 'f32'} k{k} strip{sw} plane{hw}"
 
 
 class Timings:
@@ -243,28 +262,7 @@ def phase_kernels(dev):
         name="haar_dwt2d", route="cuda", source="ewvit_tpu_torch/csrc/haar.cu",
         replaces="ewvit_tpu/ops/haar.py:163", max_abs_err=max(errs)))
 
-    # K2: depthwise+BN+SiLU+SE mean; (channels, side, launches per chunk)
-    errs, tm = [], Timings()
-    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
-        mtol = F32_TOL if dtype == torch.float32 else dict(atol=1e-3, rtol=1e-3)
-        for c, side, count in ((512, 14, 5), (768, 14, 1), (960, 14, 8), (1536, 7, 14)):
-            x = torch.randn(N_ROWS, c, side, side, device=dev, generator=g).to(dtype)
-            w_eff = 0.2 * torch.randn(9, c, device=dev, generator=g)
-            shift = 0.1 * torch.randn(c, device=dev, generator=g)
-            y, m = dw_bn_silu_mean(x, w_eff, shift, 3)
-            y_p, m_p = dw_bn_silu_mean_plain(x, w_eff, shift, 3)
-            what = f"dw_bn_silu_mean {tuple(x.shape)} {dtype}"
-            errs.append(max(max_err(y, y_p, what=what + " y", **tol),
-                            max_err(m, m_p, what=what + " mean", **mtol)))
-            print(f"[kernels] {what} x{count}/chunk: max abs err {errs[-1]:.3e} "
-                  f"(tol y {tol}, mean {mtol})")
-            if dtype == torch.bfloat16:
-                tm.add(count, lambda: dw_bn_silu_mean(x, w_eff, shift, 3),
-                       lambda: dw_bn_silu_mean_plain(x, w_eff, shift, 3),
-                       nb=nbytes(x, y, w_eff, shift, m), ops=x.numel() * (2 * 9 + 6))
-    report.append(tm.entry(
-        name="dw_bn_silu_mean", route="cuda", source="ewvit_tpu_torch/csrc/dw_se.cu",
-        replaces="ewvit_tpu/ops/dw_se.py:52", max_abs_err=max(errs)))
+    report.append(dwse_kernel(dev, g))
 
     # K4: fused bidirectional cross-attention, 1 launch per chunk
     d, heads, depth = 128, 4, 2
@@ -301,6 +299,102 @@ def phase_kernels(dev):
               f"{r['plain_wall_ms']:.4f}, library {r['library_ms']}, bound "
               f"{r['bound_ms']:.4f} ({r['bound_by']})")
     return report
+
+
+def dwse_check(x, k, g, what):
+    """K2 against its plain version on x (fp32 within 1e-5, bf16 y within one
+    rounding and the mean within 1e-3), through the public entry; the launch
+    plan's shared memory must be the kernel's own. Returns the error, the
+    packed weights and the plain version's arguments."""
+    c = x.shape[1]
+    w_eff = 0.2 * torch.randn(k * k, c, device=x.device, generator=g)
+    shift = 0.1 * torch.randn(c, device=x.device, generator=g)
+    plan = dwse_plan(*x.shape, k, x.element_size(), torch.cuda.get_device_properties(
+        x.device).multi_processor_count)
+    smem = extension.library("dw_se").ewvit_dw_se_smem_bytes(
+        *x.shape, k, extension.dtype_code(x), plan.group, plan.band_rows, plan.stages,
+        plan.strip)
+    if smem != plan.smem_bytes:
+        fail(f"{what}: the kernel lays out {smem} bytes of shared memory, the plan "
+             f"{plan.smem_bytes}")
+    y, m = dw_bn_silu_mean(x, w_eff, shift, k)
+    y_p, m_p = dw_bn_silu_mean_plain(x, w_eff, shift, k)
+    tol = F32_TOL if x.dtype == torch.float32 else BF16_TOL
+    mtol = F32_TOL if x.dtype == torch.float32 else dict(atol=1e-3, rtol=1e-3)
+    err = max(max_err(y, y_p, what=what + " y", **tol),
+              max_err(m, m_p, what=what + " mean", **mtol))
+    print(f"[kernels] {what}: max abs err {err:.3e} (tol y {tol}, mean {mtol}; G "
+          f"{plan.group}, band rows {plan.band_rows}, stages {plan.stages}, strip "
+          f"{plan.strip}, grid {plan.grid}, smem {smem} B)")
+    return err, pack_dwse(w_eff, shift, k), (w_eff, shift), (y, m)
+
+
+def dwse_cold_ms(x, packed, k, nb):
+    """Device ms per K2 call with the L2 cold: the calls cycle through copies
+    of x, and keep their outputs, over more than COLD_BYTES."""
+    copies = -(-COLD_BYTES // nb) + 1
+    xs = [x.clone() for _ in range(copies)]
+    outs, i = [None] * copies, [0]
+
+    def call():
+        outs[i[0] % copies] = dw_bn_silu_mean_packed(xs[i[0] % copies], packed, k)
+        i[0] += 1
+
+    for _ in range(copies):        # every output slot allocated before timing
+        call()
+    ms = time_ms(call, iters=4 * copies)[0]
+    del xs, outs
+    return ms
+
+
+def dwse_kernel(dev, g):
+    """K2 at V2-S's four served shapes (fp32 and bf16 checked, bf16 timed warm
+    and cold with the weights packed outside the timed call, as the served
+    MBConv keeps them; two runs must agree bit for bit), then B0's planes
+    and ragged cases, checked in fp32 and bf16 and not timed."""
+    errs, tm = [], Timings()
+    cold = 0.0
+    # (channels, side, launches per chunk)
+    for dtype in (torch.float32, torch.bfloat16):
+        for c, side, count in ((512, 14, 5), (768, 14, 1), (960, 14, 8), (1536, 7, 14)):
+            x = torch.randn(N_ROWS, c, side, side, device=dev, generator=g).to(dtype)
+            what = f"dw_bn_silu_mean {tuple(x.shape)} k3 {dtype} x{count}/chunk"
+            err, packed, plain_args, (y, m) = dwse_check(x, 3, g, what)
+            errs.append(err)
+            again = dw_bn_silu_mean_packed(x, packed, 3)
+            if not (torch.equal(again[0], y) and torch.equal(again[1], m)):
+                fail(f"{what}: two runs differ")
+            if dtype == torch.bfloat16:
+                nb = nbytes(x, y, packed, m)
+                before = tm.t["ms"]
+                tm.add(count, lambda: dw_bn_silu_mean_packed(x, packed, 3),
+                       lambda: dw_bn_silu_mean_plain(x, *plain_args, 3),
+                       nb=nb, ops=x.numel() * (2 * 9 + 6))
+                one_cold = dwse_cold_ms(x, packed, 3, nbytes(x, y))
+                cold += count * one_cold
+                print(f"[kernels] {what}: per call warm {(tm.t['ms'] - before) / count:.4f} "
+                      f"ms, cold {one_cold:.4f} ms, bound {bound_ms(nb, 0)[0]:.4f} ms")
+            del x, y, m, again
+    # B0 (ewvit_tpu/models/efficientnet.py:53-61) at N = 4, then ragged cases:
+    # N*C not a multiple of the group; 33 planes of 7x7 (bf16: 3,234 bytes,
+    # not a multiple of 16, so the last unit goes by ordinary loads); bands
+    # with a k5 halo; 150-wide rows (300 bf16 bytes: every band by ordinary
+    # loads and stores, and a strip past the row's end)
+    for n, c, side, k in ((4, 32, 112, 3), (4, 144, 56, 3), (4, 240, 28, 5),
+                          (4, 672, 14, 5), (4, 1152, 7, 5), (4, 1152, 7, 3),
+                          (3, 136, 14, 3), (3, 136, 7, 3), (1, 33, 7, 3), (2, 3, 112, 5),
+                          (1, 3, 150, 3)):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(n, c, side, side, device=dev, generator=g).to(dtype)
+            errs.append(dwse_check(x, k, g, f"dw_bn_silu_mean {tuple(x.shape)} k{k} "
+                                            f"{dtype}")[0])
+    entry = tm.entry(name="dw_bn_silu_mean", route="cuda",
+                     source="ewvit_tpu_torch/csrc/dw_se.cu",
+                     replaces="ewvit_tpu/ops/dw_se.py:52", max_abs_err=max(errs))
+    entry["cold_ms"] = cold
+    print(f"[kernels] dw_bn_silu_mean per chunk (bf16): warm {entry['ms']:.4f} ms, cold "
+          f"{cold:.4f} ms, bound {entry['bound_ms']:.4f} ms")
+    return entry
 
 
 def winograd_kernels(dev, g):
@@ -514,11 +608,12 @@ def phase_serve():
         fail(f"fused_multiscale_winograd launched {n_k3} times for {chunks} chunks")
     if launches["three_flags"]["fused_multiscale_winograd"]:
         fail("fused_multiscale_winograd launched on the three-flag path")
-    # the fused tail folds and packs U once per model (at cast_for_inference),
-    # never per request
+    # the fused tail folds and packs U, and each SE MBConv its depthwise
+    # weights, once per model (at cast_for_inference), never per request
     for name, n in launches.items():
-        if n["winograd_u_fold"]:
-            fail(f"U was folded {n['winograd_u_fold']} times while serving {name}")
+        for fold in ("winograd_u_fold", "dw_se_fold"):
+            if n[fold]:
+                fail(f"{fold}: {n[fold]} folds while serving {name}")
     print("[serve] latency ms side by side (three_flags | fused_mwt_tail): " + ", ".join(
         f"{a:.3f} | {b:.3f}" for a, b in zip(served["three_flags"]["lat"],
                                              served["fused_mwt_tail"]["lat"])))
@@ -556,9 +651,10 @@ def main() -> int:
         if r["name"] != "conv3x3_winograd":   # K5: the kernels phase's count
             r["launches"] = launches["fused_mwt_tail"][r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "cold_ms")
     print(f"[done] {time.perf_counter() - t0:.1f} s")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in report]}))
+    print(json.dumps({"kernels": [{k: r.get(k) for k in keys} for r in report]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -9,7 +9,10 @@ Convs use symmetric ``(k-1)//2`` padding, BN eps 1e-3 and torch momentum 0.1
 With ``use_pallas_dwse`` an eval-mode stride-1 SE ``MBConv`` folds its
 depthwise BN into ``w_eff``/``shift`` and runs K2 (``ops/dw_se.py``), whose
 fp32 spatial mean feeds the SE in place of a second read of y
-(efficientnet.py:301-314). Stride-2 SE blocks stay plain. B0 waits for the
+(efficientnet.py:301-314). The fold, packed for the kernel, is kept per
+model in eval mode (computed at ``serving.cast_for_inference`` or the first
+call, dropped on ``train()`` and ``load_state_dict``), so a request folds
+nothing. Stride-2 SE blocks stay plain. B0 waits for the
 ``sfe_only``/``sfe_mwt`` slice.
 """
 
@@ -21,7 +24,8 @@ import torch.nn.functional as F
 
 from ewvit_tpu_torch.configs import V2S_FULL, BackboneSpec
 from ewvit_tpu_torch.models.norm import BatchNorm2d
-from ewvit_tpu_torch.ops.dw_se import dw_bn_silu_mean
+from ewvit_tpu_torch.ops import extension
+from ewvit_tpu_torch.ops.dw_se import dw_bn_silu_mean_packed, pack_dwse
 
 
 class ConvBNAct(nn.Sequential):
@@ -69,17 +73,39 @@ class MBConv(nn.Module):
         layers.append(SqueezeExcitation(exp, max(1, int(cin * se_ratio))))
         layers.append(ConvBNAct(exp, cout, 1, act=False))
         self.block = nn.Sequential(*layers)
+        self._dwse = None      # (key, packed w_eff and shift) of K2
+
+    def train(self, mode: bool = True):
+        self._dwse = None
+        return super().train(mode)
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        self._dwse = None
+        super()._load_from_state_dict(*args, **kwargs)
+
+    @torch.no_grad()
+    def _dwse_weights(self) -> torch.Tensor:
+        """The depthwise conv with its eval BN folded in (fp32 ``w_eff =
+        weight * scale``, ``shift``), packed by ``pack_dwse`` on the weights'
+        device; computed on the first call and kept (eval only)."""
+        dw = self.block[int(self.has_expand)]
+        conv, bn = dw[0], dw[1]
+        key = (conv.weight.dtype, conv.weight.device, conv.weight.data_ptr())
+        if self._dwse is None or self._dwse[0] != key:
+            scale, shift = bn.folded()
+            c, k = conv.out_channels, self.kernel
+            w_eff = conv.weight.float().reshape(c, k * k).t() * scale
+            self._dwse = (key, pack_dwse(w_eff, shift, k))
+            if conv.weight.is_cuda:
+                extension.LAUNCHES["dw_se_fold"] += 1
+        return self._dwse[1]
 
     def forward(self, x):
         i = int(self.has_expand)
         h = self.block[0](x) if self.has_expand else x
         dw, se, project = self.block[i], self.block[i + 1], self.block[i + 2]
         if self.fuse_dwse and not self.training:
-            conv, bn = dw[0], dw[1]
-            scale, shift = bn.folded()
-            c, k = conv.out_channels, self.kernel
-            w_eff = (conv.weight.float().reshape(c, k * k).t() * scale).contiguous()
-            y, m = dw_bn_silu_mean(h, w_eff, shift.contiguous(), k)
+            y, m = dw_bn_silu_mean_packed(h, self._dwse_weights(), self.kernel)
             h = se(y, mean=m[:, :, None, None])
         else:
             h = se(dw(h))

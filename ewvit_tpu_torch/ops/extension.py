@@ -49,8 +49,11 @@ _SIGNATURES = {
         "ewvit_haar_dwt2d": [_C_VOID_P] * 3 + [_C_INT] * 5 + [_C_VOID_P],
     },
     "dw_se": {
-        # x, w_eff, shift, y, mean, n, c, h, w, k, dtype, stream
-        "ewvit_dw_bn_silu_mean": [_C_VOID_P] * 5 + [_C_INT] * 6 + [_C_VOID_P],
+        # x, packed weights, y, mean, n, c, h, w, k, dtype, group, band_rows,
+        # stages, strip, grid, stream (ops/dw_se.py DwsePlan)
+        "ewvit_dw_bn_silu_mean": [_C_VOID_P] * 4 + [_C_INT] * 11 + [_C_VOID_P],
+        # n, c, h, w, k, dtype, group, band_rows, stages, strip -> bytes or -1
+        "ewvit_dw_se_smem_bytes": [_C_INT] * 10,
     },
     "fused_attention": {
         # space, freq, mats, smalls, so, fo, n, d, depth, heads, dtype, stream
@@ -82,6 +85,9 @@ LAUNCHES: Dict[str, int] = {
     # several PyTorch launches; the served fused tail keeps U, so a request
     # adds none
     "winograd_u_fold": 0,
+    # not a kernel either: K2's BN folds and packs on the card
+    # (models/efficientnet.py), kept per model like U
+    "dw_se_fold": 0,
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -84,6 +84,9 @@ def test_haar_wrapper_on_cpu_is_plain_and_inverts():
     ((2, 14, 14, 136), 3),   # channels not a multiple of 128
     ((2, 14, 14, 192), 5),   # 5x5 depthwise
     ((1, 2, 2, 128), 3),     # plane smaller than the halo
+    ((1, 56, 56, 16), 3),    # B0 planes (ewvit_tpu/models/efficientnet.py:53-61)
+    ((1, 28, 28, 24), 5),
+    ((1, 112, 112, 8), 3),
 ])
 def test_dw_bn_silu_mean_plain_matches_jax_kernel(shape, k):
     g = np.random.default_rng(2)
