@@ -13,10 +13,12 @@ Phases (any failure raises and the exit code is nonzero):
 3. kernels -- holds each hand-written kernel against its plain PyTorch version
               on the card at the main path's shapes (K5, in no model, at the
               MWT's two stride-1 conv shapes; K2 also at B0's planes and
-              ragged cases), in float32 (TF32 off) and bfloat16, and times
-              kernel, plain version and, where one exists, a single PyTorch
-              call computing the same function, with CUDA events (K2 also
-              with a cold L2);
+              ragged cases; K4's cluster kernel at N = 64, 32, 1, 65 and
+              its general kernel at D = 256), in float32 (TF32 off) and
+              bfloat16, and times kernel, plain version and, where one
+              exists, a single PyTorch call computing the same function,
+              with CUDA events (K2 also with a cold L2; K4's cluster kernel
+              beside its general kernel);
 4. serve   -- builds the full-width dynamic detector (ModelConfig(): 224 px,
               V2-S, dama_dim 128, 4 heads, 3 levels) with seeded random
               weights and serves it on two paths: the three kernel flags on
@@ -27,7 +29,9 @@ Phases (any failure raises and the exit code is nonzero):
               masked tail, 64 flattened rows), reads the counters, checks the
               probabilities, and holds the outputs against the same weights
               served on the plain (direct-conv) modules in fp32; a served
-              request must fold no weights (U, K2's depthwise weights);
+              request must fold or pack no weights (U, K2's depthwise
+              weights, K4's weights), and the host cost of the kept
+              weights' key check is printed;
 5. report  -- one JSON line describing every kernel, then the final line
               {"ok": true, "device": {...}}.
 
@@ -49,6 +53,9 @@ import torch.nn.functional as F
 
 from ewvit_tpu_torch import InferenceEngine, ModelConfig, build_detector, video_forward
 from ewvit_tpu_torch.models.detector import random_detector
+from ewvit_tpu_torch.models.efficientnet import MBConv
+from ewvit_tpu_torch.models.layers import BidirectionalCrossTransformer
+from ewvit_tpu_torch.models.mwt import MWT
 from ewvit_tpu_torch.device import resolve_device
 from ewvit_tpu_torch.ops import extension
 from ewvit_tpu_torch.ops.dw_se import (
@@ -59,8 +66,13 @@ from ewvit_tpu_torch.ops.dw_se import (
     pack_dwse,
 )
 from ewvit_tpu_torch.ops.fused_attention import (
+    CLUSTER_ROWS,
+    _launch_cluster,
+    _launch_general,
     fused_bidirectional_cross_attention,
+    fused_bidirectional_cross_attention_packed,
     fused_cross_attention_plain,
+    pack_xattn,
 )
 from ewvit_tpu_torch.ops.haar import haar_dwt2d, haar_dwt2d_plain
 from ewvit_tpu_torch.ops.mwt_tail import (
@@ -84,6 +96,10 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12        # H100 SXM fp32 outside the tensor cores
 BF16_MMA_OPS_PER_S = 989e12   # H100 SXM bf16 tensor cores, dense
 F32_TOL = dict(atol=1e-5, rtol=1e-5)      # fp32: summation order only
+# fp32 K4 against its plain version: the same products summed in another
+# order over k = 128, through four dependent blocks of LayerNorm and
+# projections
+XATTN_F32_TOL = dict(atol=1e-4, rtol=1e-4)
 # fp32 Winograd (K3, K5) against its plain version: the same products summed
 # in another order over 384 or 54 input channels and 16 transform positions
 WINO_F32_TOL = dict(atol=1e-4, rtol=1e-4)
@@ -196,6 +212,8 @@ def phase_build():
                     next((k for k in ("3hop", "3f32") if k in fn), ""), fn[:48])
                 if "dw_bn_silu_mean_kernel" in fn:
                     label = dwse_label(fn)
+                elif "xattn_" in fn:
+                    label = xattn_label(fn)
                 print(f"[build] {stem}: {label}: {line.strip()}")
 
 
@@ -204,6 +222,12 @@ def dwse_label(mangled):
     (plane 0: any plane size)."""
     k, sw, hw = re.search(r"Li(\d+)ELi(\d+)ELi(\d+)E", mangled).groups()
     return f"K2 {'bf16' if 'bfloat16' in mangled else 'f32'} k{k} strip{sw} plane{hw}"
+
+
+def xattn_label(mangled):
+    """'K4 cluster bf16' / 'K4 general f32' from K4's mangled names."""
+    dtype = "bf16" if "bfloat16" in mangled else "f32"
+    return f"K4 {'cluster' if 'xattn_cluster' in mangled else 'general'} {dtype}"
 
 
 class Timings:
@@ -264,31 +288,7 @@ def phase_kernels(dev):
 
     report.append(dwse_kernel(dev, g))
 
-    # K4: fused bidirectional cross-attention, 1 launch per chunk
-    d, heads, depth = 128, 4, 2
-    mats = torch.randn(2 * depth, d, 4 * d, device=dev, generator=g) / d ** 0.5
-    smalls = torch.stack([1 + 0.1 * torch.randn(2 * depth, d, device=dev, generator=g),
-                          0.1 * torch.randn(2 * depth, d, device=dev, generator=g),
-                          0.1 * torch.randn(2 * depth, d, device=dev, generator=g)], dim=1)
-    errs, tm = [], Timings()
-    for dtype, tol in ((torch.float32, dict(atol=1e-4, rtol=1e-4)), (torch.bfloat16, BF16_TOL)):
-        s = torch.randn(N_ROWS, d, device=dev, generator=g).to(dtype)
-        f = torch.randn(N_ROWS, d, device=dev, generator=g).to(dtype)
-        so, fo = fused_bidirectional_cross_attention(s, f, mats, smalls, heads=heads)
-        so_p, fo_p = fused_cross_attention_plain(s, f, mats, smalls, heads)
-        what = f"fused_bidirectional_cross_attention {tuple(s.shape)} {dtype}"
-        errs.append(max(max_err(so, so_p, what=what + " space", **tol),
-                        max_err(fo, fo_p, what=what + " freq", **tol)))
-        print(f"[kernels] {what}: max abs err {errs[-1]:.3e} (tol {tol})")
-    # 2*depth blocks, each 2*N*D*(D + 2D + 2D + D) flops of projections
-    tm.add(1, lambda: fused_bidirectional_cross_attention(s, f, mats, smalls, heads=heads),
-           lambda: fused_cross_attention_plain(s, f, mats, smalls, heads),
-           nb=nbytes(s, f, so, fo, mats, smalls),
-           ops=2 * depth * 2 * N_ROWS * d * 6 * d)
-    report.append(tm.entry(
-        name="fused_bidirectional_cross_attention", route="cuda",
-        source="ewvit_tpu_torch/csrc/fused_attention.cu",
-        replaces="ewvit_tpu/ops/fused_attention.py:142", max_abs_err=max(errs)))
+    report.append(xattn_kernel(dev, g))
 
     report += winograd_kernels(dev, g)
     report[-1]["launches"] = extension.LAUNCHES["conv3x3_winograd"]
@@ -299,6 +299,88 @@ def phase_kernels(dev):
               f"{r['plain_wall_ms']:.4f}, library {r['library_ms']}, bound "
               f"{r['bound_ms']:.4f} ({r['bound_by']})")
     return report
+
+
+def xattn_weights(d, depth, dev, g):
+    """Seeded K4 weights: mats ``[2*depth, d, 4d]`` (scaled as a lecun
+    init), smalls ``[2*depth, 3, d]`` (LayerNorm near identity, small
+    biases)."""
+    mats = torch.randn(2 * depth, d, 4 * d, device=dev, generator=g) / d ** 0.5
+    smalls = torch.stack([1 + 0.1 * torch.randn(2 * depth, d, device=dev, generator=g),
+                          0.1 * torch.randn(2 * depth, d, device=dev, generator=g),
+                          0.1 * torch.randn(2 * depth, d, device=dev, generator=g)], dim=1)
+    return mats, smalls
+
+
+def xattn_kernel(dev, g):
+    """K4 at D = 128 (the served width, 4 heads, depth 2), 1 launch per chunk:
+    the cluster kernel against the plain version at N = 64 (the chunk), 32
+    (warmup, B = 1), 1 and 65 (a partial last cluster), in fp32 and bf16,
+    and at 1 and 8 heads; the packed entry (weights packed once, as the
+    served module keeps them) against the public one; two runs bit for bit;
+    the general kernel (the first design) at D = 256 and at D = 128; times of
+    the cluster kernel and of the general kernel at D = 128 in this call,
+    packing outside the timed calls; and how many clusters can be resident
+    (cudaOccupancyMaxActiveClusters; a chunk needs 8)."""
+    d, heads, depth = 128, 4, 2
+    mats, smalls = xattn_weights(d, depth, dev, g)
+    packed = pack_xattn(mats, smalls)
+    errs, tm = [], Timings()
+    for dtype, tol in ((torch.float32, XATTN_F32_TOL), (torch.bfloat16, BF16_TOL)):
+        for n, hs in ((N_ROWS, heads), (32, heads), (1, heads), (65, heads),
+                      (N_ROWS, 1), (N_ROWS, 8)):
+            s = torch.randn(n, d, device=dev, generator=g).to(dtype)
+            f = torch.randn(n, d, device=dev, generator=g).to(dtype)
+            so, fo = fused_bidirectional_cross_attention(s, f, mats, smalls, heads=hs)
+            so_p, fo_p = fused_cross_attention_plain(s, f, mats, smalls, hs)
+            what = f"fused_bidirectional_cross_attention cluster {tuple(s.shape)} heads {hs} {dtype}"
+            errs.append(max(max_err(so, so_p, what=what + " space", **tol),
+                            max_err(fo, fo_p, what=what + " freq", **tol)))
+            print(f"[kernels] {what}: max abs err {errs[-1]:.3e} (tol {tol})")
+            for again in (fused_bidirectional_cross_attention_packed(s, f, packed, heads=hs),
+                          _launch_cluster(s, f, packed, hs)):
+                if not (torch.equal(again[0], so) and torch.equal(again[1], fo)):
+                    fail(f"{what}: the packed entry or a second run differs")
+    print("[kernels] fused_bidirectional_cross_attention: the packed entry and second runs "
+          "equal the first bit for bit")
+
+    for dtype, tol in ((torch.float32, XATTN_F32_TOL), (torch.bfloat16, BF16_TOL)):
+        for dd, n in ((256, N_ROWS), (256, 5), (128, N_ROWS)):
+            m2, s2 = (mats, smalls) if dd == 128 else xattn_weights(dd, depth, dev, g)
+            s = torch.randn(n, dd, device=dev, generator=g).to(dtype)
+            f = torch.randn(n, dd, device=dev, generator=g).to(dtype)
+            if dd == 128:
+                so, fo = _launch_general(s, f, m2, s2, heads)
+            else:
+                so, fo = fused_bidirectional_cross_attention(s, f, m2, s2, heads=heads)
+            so_p, fo_p = fused_cross_attention_plain(s, f, m2, s2, heads)
+            what = f"fused_bidirectional_cross_attention general {tuple(s.shape)} {dtype}"
+            errs.append(max(max_err(so, so_p, what=what + " space", **tol),
+                            max_err(fo, fo_p, what=what + " freq", **tol)))
+            print(f"[kernels] {what}: max abs err {errs[-1]:.3e} (tol {tol})")
+
+    s = torch.randn(N_ROWS, d, device=dev, generator=g).to(torch.bfloat16)
+    f = torch.randn(N_ROWS, d, device=dev, generator=g).to(torch.bfloat16)
+    so, fo = fused_bidirectional_cross_attention_packed(s, f, packed, heads=heads)
+    # 2*depth blocks, each 2*N*D*(D + 2D + 2D + D) flops of projections
+    tm.add(1, lambda: fused_bidirectional_cross_attention_packed(s, f, packed, heads=heads),
+           lambda: fused_cross_attention_plain(s, f, mats, smalls, heads),
+           nb=nbytes(s, f, so, fo, mats, smalls), ops=2 * depth * 2 * N_ROWS * d * 6 * d)
+    general_ms = time_ms(lambda: _launch_general(s, f, mats, smalls, heads))[0]
+    active = extension.library("fused_attention").ewvit_xattn_cluster_max_active()
+    needed = -(-N_ROWS // CLUSTER_ROWS)
+    if active < needed:
+        fail(f"cudaOccupancyMaxActiveClusters: {active} clusters resident, a chunk needs "
+             f"{needed}")
+    print(f"[kernels] fused_bidirectional_cross_attention per chunk (bf16, device ms): "
+          f"cluster kernel {tm.t['ms']:.4f}, general kernel (the first design) "
+          f"{general_ms:.4f}; clusters of 8 CTAs x {CLUSTER_ROWS} rows resident at once "
+          f"(cudaOccupancyMaxActiveClusters): {active}, a chunk needs {needed}")
+    entry = tm.entry(name="fused_bidirectional_cross_attention", route="cuda",
+                     source="ewvit_tpu_torch/csrc/fused_attention.cu",
+                     replaces="ewvit_tpu/ops/fused_attention.py:142", max_abs_err=max(errs))
+    entry.update(general_ms=general_ms, max_active_clusters=active)
+    return entry
 
 
 def dwse_check(x, k, g, what):
@@ -548,6 +630,7 @@ def serve(cfg, state, requests, *, count):
     streamed = list(engine.predict_stream(iter(requests)))
     stream_ms = (time.perf_counter() - t) * 1e3
     launches = dict(extension.LAUNCHES) if count else None
+    key_us = kept_check_us(engine.model, engine.dtype) if count else None
     outs = [video_forward(engine.model,
                           preprocess_batch(torch.from_numpy(c).cuda(), engine.dtype),
                           frame_chunk=32) for c in requests]
@@ -555,7 +638,32 @@ def serve(cfg, state, requests, *, count):
     del engine, model
     torch.cuda.empty_cache()
     return dict(probs=probs, streamed=streamed, lat=lat, stream_ms=stream_ms,
-                launches=launches, outputs=outputs)
+                launches=launches, outputs=outputs, key_us=key_us)
+
+
+def kept_check_us(model, dtype, calls=2000):
+    """Host microseconds per call of each kept-weight getter when nothing
+    changed: the key check (data_ptr and _version of every tensor the fold
+    reads) and the lookup; a getter that folded again would count a fold
+    here and fail the serve phase."""
+    getters = {}
+    for m in model.modules():
+        if isinstance(m, MBConv) and m.fuse_dwse:
+            getters.setdefault("MBConv (K2)", m._dwse_weights)
+        elif isinstance(m, MWT) and m.use_fused_tail:
+            getters.setdefault("MWT (K3)", lambda m=m: m._tail_weights(dtype))
+        elif isinstance(m, BidirectionalCrossTransformer) and m.fuses():
+            getters.setdefault("cross-attention (K4)", m._xattn_weights)
+    out = {}
+    for name, fn in getters.items():
+        before = dict(extension.LAUNCHES)
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        out[name] = (time.perf_counter() - t) * 1e6 / calls
+        if extension.LAUNCHES != before:
+            fail(f"{name}: the kept weights were folded again with nothing changed")
+    return out
 
 
 def check_probs(served):
@@ -611,9 +719,14 @@ def phase_serve():
     # the fused tail folds and packs U, and each SE MBConv its depthwise
     # weights, once per model (at cast_for_inference), never per request
     for name, n in launches.items():
-        for fold in ("winograd_u_fold", "dw_se_fold"):
+        for fold in ("winograd_u_fold", "dw_se_fold", "xattn_pack"):
             if n[fold]:
                 fail(f"{fold}: {n[fold]} folds while serving {name}")
+        # D = 128 takes the cluster kernel, never the general one
+        if n["fused_bidirectional_cross_attention_general"]:
+            fail(f"the general cross-attention kernel ran on the {name} path")
+        print(f"[serve] {name}: kept-weight key check, host us per call: "
+              f"{ {k: round(v, 3) for k, v in served[name]['key_us'].items()} }")
     print("[serve] latency ms side by side (three_flags | fused_mwt_tail): " + ", ".join(
         f"{a:.3f} | {b:.3f}" for a, b in zip(served["three_flags"]["lat"],
                                              served["fused_mwt_tail"]["lat"])))
@@ -652,7 +765,7 @@ def main() -> int:
             r["launches"] = launches["fused_mwt_tail"][r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "cold_ms")
+            "cold_ms", "general_ms", "max_active_clusters")
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [{k: r.get(k) for k in keys} for r in report]}))
     print(json.dumps({"ok": True, "device": {

@@ -125,43 +125,13 @@ bool make_geo(int n, int c, int h, int w, int k, int es, int group, int band_row
   return true;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n"
-      "}\n"
-      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  return done != 0;
-}
-// Waits for the phase of `parity` to complete; a wait that never ends (a
-// pipeline fault) traps, so the launch fails instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  for (uint32_t tries = 0; !mbar_try(bar, parity); ++tries) {
-    if (tries > (1u << 26)) __trap();
-  }
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void bulk_g2s(uint32_t dst, const void* src, uint32_t bytes,
-                                         uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
-}
+using ewvit::bulk_g2s;
+using ewvit::mbar_expect_tx;
+using ewvit::mbar_arrive;
+using ewvit::mbar_init;
+using ewvit::mbar_wait;
+using ewvit::smem_u32;
+
 __device__ __forceinline__ void bulk_s2g(void* dst, uint32_t src, uint32_t bytes) {
   asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
                ::"l"(dst), "r"(src), "r"(bytes) : "memory");

@@ -11,8 +11,10 @@ depthwise BN into ``w_eff``/``shift`` and runs K2 (``ops/dw_se.py``), whose
 fp32 spatial mean feeds the SE in place of a second read of y
 (efficientnet.py:301-314). The fold, packed for the kernel, is kept per
 model in eval mode (computed at ``serving.cast_for_inference`` or the first
-call, dropped on ``train()`` and ``load_state_dict``), so a request folds
-nothing. Stride-2 SE blocks stay plain. B0 waits for the
+call, dropped on ``train()``, ``load_state_dict`` and
+``drop_kept_weights()``, and folded again after an in-place edit of the
+tensors it reads; ``models/kept.py``), so a request folds nothing.
+Stride-2 SE blocks stay plain. B0 waits for the
 ``sfe_only``/``sfe_mwt`` slice.
 """
 
@@ -23,6 +25,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ewvit_tpu_torch.configs import V2S_FULL, BackboneSpec
+from ewvit_tpu_torch.models.kept import KeepsWeights, version_key
 from ewvit_tpu_torch.models.norm import BatchNorm2d
 from ewvit_tpu_torch.ops import extension
 from ewvit_tpu_torch.ops.dw_se import dw_bn_silu_mean_packed, pack_dwse
@@ -55,7 +58,7 @@ class SqueezeExcitation(nn.Module):
         return x * torch.sigmoid(s)
 
 
-class MBConv(nn.Module):
+class MBConv(KeepsWeights):
     """Inverted residual: [expand] -> depthwise -> SE -> project (+ residual)."""
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int,
@@ -75,22 +78,21 @@ class MBConv(nn.Module):
         self.block = nn.Sequential(*layers)
         self._dwse = None      # (key, packed w_eff and shift) of K2
 
-    def train(self, mode: bool = True):
+    def drop_kept_weights(self) -> None:
         self._dwse = None
-        return super().train(mode)
-
-    def _load_from_state_dict(self, *args, **kwargs):
-        self._dwse = None
-        super()._load_from_state_dict(*args, **kwargs)
 
     @torch.no_grad()
     def _dwse_weights(self) -> torch.Tensor:
         """The depthwise conv with its eval BN folded in (fp32 ``w_eff =
         weight * scale``, ``shift``), packed by ``pack_dwse`` on the weights'
-        device; computed on the first call and kept (eval only)."""
+        device; computed on the first call and kept (eval only), keyed on
+        the conv weight and the four BN tensors (an edit through ``.data``
+        bypasses the key: call :meth:`drop_kept_weights` after one)."""
         dw = self.block[int(self.has_expand)]
         conv, bn = dw[0], dw[1]
-        key = (conv.weight.dtype, conv.weight.device, conv.weight.data_ptr())
+        key = (conv.weight.dtype, conv.weight.device,
+               *version_key(conv.weight, bn.weight, bn.bias, bn.running_mean,
+                            bn.running_var))
         if self._dwse is None or self._dwse[0] != key:
             scale, shift = bn.folded()
             c, k = conv.out_channels, self.kernel

@@ -15,10 +15,15 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+from ewvit_tpu_torch.models.kept import KeepsWeights, version_key
 from ewvit_tpu_torch.models.norm import LayerNorm
+from ewvit_tpu_torch.ops import extension
 from ewvit_tpu_torch.ops.fused_attention import (
+    cluster_route,
     fused_bidirectional_cross_attention,
+    fused_bidirectional_cross_attention_packed,
     pack_params,
+    pack_xattn,
     supports,
 )
 
@@ -111,11 +116,18 @@ class CrossAttention(nn.Module):
         return self.to_out(_mha(self.to_q(x), k, v, self.heads))
 
 
-class BidirectionalCrossTransformer(nn.Module):
+class BidirectionalCrossTransformer(KeepsWeights):
     """Per layer: space += CA(LN(space), freq); freq += CA(LN(freq), space').
 
     ``use_fused`` routes the stack through K4 (ops/fused_attention.py) when
     :func:`supports` allows it: eval mode, one token, ``dim % 128 == 0``.
+    K4's weights are packed once and kept (``_xattn_weights``): in the
+    cluster kernel's layout at D = 128 (``pack_xattn``), else as
+    ``mats``/``smalls`` for the general kernel. They are computed at
+    ``serving.cast_for_inference`` or the first fused call, dropped on
+    ``train()``, ``load_state_dict`` and ``drop_kept_weights()``, and packed
+    again when a tensor they read is replaced or edited in place
+    (``models/kept.py``).
     """
 
     def __init__(self, dim: int, depth: int = 1, heads: int = 8,
@@ -130,6 +142,37 @@ class BidirectionalCrossTransformer(nn.Module):
                 LayerNorm(dim), CrossAttention(dim, heads, dim_head, dropout),
                 LayerNorm(dim), CrossAttention(dim, heads, dim_head, dropout),
             ]) for _ in range(depth)])
+        self._xattn = None     # (key, K4's packed weights)
+
+    def drop_kept_weights(self) -> None:
+        self._xattn = None
+
+    def fuses(self, tokens: int = 1) -> bool:
+        """Whether a forward over ``tokens`` tokens per branch runs K4."""
+        return (self.use_fused and self.inner == self.dim
+                and supports(self.dim, tokens, not self.training))
+
+    @torch.no_grad()
+    def _xattn_weights(self):
+        """K4's weights, packed on the weights' device on the first call and
+        kept, keyed on the 16 projection weights and biases and the 8
+        LayerNorm parameters (an edit through ``.data`` bypasses the key:
+        call :meth:`drop_kept_weights` after one)."""
+        tensors = []
+        for sn, sa, fn, fa in self.layers:
+            for ln, att in ((sn, sa), (fn, fa)):
+                out = att.to_out[0]
+                tensors += (ln.weight, ln.bias, att.to_q.weight, att.to_kv.weight,
+                            out.weight, out.bias)
+        key = (tensors[2].dtype, tensors[2].device, *version_key(*tensors))
+        if self._xattn is None or self._xattn[0] != key:
+            mats, smalls = pack_params(self.flat_params(), self.depth)
+            packed = (pack_xattn(mats, smalls) if cluster_route(self.dim, self.heads)
+                      else (mats, smalls))
+            self._xattn = (key, packed)
+            if mats.is_cuda:
+                extension.LAUNCHES["xattn_pack"] += 1
+        return self._xattn[1]
 
     def flat_params(self):
         """Weights in the flat layout of ops.fused_attention (kernels [in, out])."""
@@ -144,13 +187,14 @@ class BidirectionalCrossTransformer(nn.Module):
         return p
 
     def forward(self, space, freq):
-        n, t, d = space.shape
-        if (self.use_fused and self.inner == d
-                and supports(d, t, not self.training)):
-            mats, smalls = pack_params(self.flat_params(), self.depth)
-            so, fo = fused_bidirectional_cross_attention(
-                space[:, 0].contiguous(), freq[:, 0].contiguous(), mats, smalls,
-                heads=self.heads)
+        if self.fuses(space.shape[1]):
+            s, f = space[:, 0].contiguous(), freq[:, 0].contiguous()
+            packed = self._xattn_weights()
+            if cluster_route(self.dim, self.heads):
+                so, fo = fused_bidirectional_cross_attention_packed(s, f, packed,
+                                                                    heads=self.heads)
+            else:
+                so, fo = fused_bidirectional_cross_attention(s, f, *packed, heads=self.heads)
             return so[:, None], fo[:, None]
         for s_norm, s_att, f_norm, f_att in self.layers:
             space = space + s_att(s_norm(space), freq, kv_include_self=True)

@@ -25,10 +25,11 @@ ordinary stride-2 conv: the JAX package's ``freq_from_phases`` only undoes
 its Mosaic phase layout. Same parameters either way. U (BN scale folded in)
 and the fp32 bias are computed once in eval mode, at the first call or from
 ``serving.cast_for_inference``, and kept packed for the kernel
-(``_tail_weights``); they are dropped on ``train()`` and on
-``load_state_dict``, and recomputed when the compute dtype, the device or
-the conv weight tensor changes (a move or a cast makes a new one). (The JAX
-package folds U inside its jitted graph.)
+(``_tail_weights``); they are dropped on ``train()``, on
+``load_state_dict`` and by ``drop_kept_weights()``, and recomputed when the
+compute dtype or the device changes or a tensor they read (conv weight and
+bias, the four BN tensors) is replaced or edited in place
+(``models/kept.py``). (The JAX package folds U inside its jitted graph.)
 
 Module names follow the reference: ``hf_conv.seperate.i.{0,1}``,
 ``hf_conv.fusion.{0,1}``, ``multiscale_fusion.{0,1}``, ``freq_conv.{0,1}``,
@@ -41,6 +42,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ewvit_tpu_torch.models.kept import KeepsWeights, version_key
 from ewvit_tpu_torch.models.norm import BatchNorm2d
 from ewvit_tpu_torch.ops.haar import haar_dwt2d, haar_dwt2d_plain
 from ewvit_tpu_torch.ops import extension
@@ -60,7 +62,7 @@ class ConvBNReLU(nn.Sequential):
                          nn.ReLU())
 
 
-class MWT(nn.Module):
+class MWT(KeepsWeights):
     """[N, C, H, W] -> [N, dama_dim, 1, 1] (eval only)."""
 
     def __init__(self, in_channels: int = 3, dama_dim: int = 128,
@@ -83,13 +85,8 @@ class MWT(nn.Module):
             nn.ReLU())
         self._tail = None      # (key, packed U, fp32 bias) of the fused tail
 
-    def train(self, mode: bool = True):
+    def drop_kept_weights(self) -> None:
         self._tail = None
-        return super().train(mode)
-
-    def _load_from_state_dict(self, *args, **kwargs):
-        self._tail = None
-        super()._load_from_state_dict(*args, **kwargs)
 
     def _hf_sep(self, hf):
         """The three shared hf_sep stacks on their channel slices, as one
@@ -107,9 +104,13 @@ class MWT(nn.Module):
     def _tail_weights(self, dtype: torch.dtype):
         """multiscale_fusion's U (BN scale folded in) in ``dtype`` and its fp32
         bias (conv bias and BN shift), packed by ``pack_tail`` for the
-        weights' device; computed on the first call and kept (eval only)."""
+        weights' device; computed on the first call and kept (eval only),
+        keyed on every tensor it reads (an edit through ``.data`` bypasses
+        the key: call :meth:`drop_kept_weights` after one)."""
         conv, bn = self.multiscale_fusion[0], self.multiscale_fusion[1]
-        key = (dtype, conv.weight.device, conv.weight.data_ptr())
+        key = (dtype, conv.weight.device,
+               *version_key(conv.weight, conv.bias, bn.weight, bn.bias,
+                            bn.running_mean, bn.running_var))
         if self._tail is None or self._tail[0] != key:
             scale, shift = bn.folded()
             u = multiscale_winograd_u(conv.weight, scale, self.levels, dtype)

@@ -56,8 +56,14 @@ _SIGNATURES = {
         "ewvit_dw_se_smem_bytes": [_C_INT] * 10,
     },
     "fused_attention": {
+        # space, freq, packed (ops/fused_attention.py pack_xattn), so, fo, n,
+        # depth, heads, dtype, stream
+        "ewvit_fused_bidir_xattn_cluster":
+            [_C_VOID_P] * 5 + [_C_INT] * 4 + [_C_VOID_P],
+        # -> cudaOccupancyMaxActiveClusters of a launch (-cudaError_t on failure)
+        "ewvit_xattn_cluster_max_active": [],
         # space, freq, mats, smalls, so, fo, n, d, depth, heads, dtype, stream
-        "ewvit_fused_bidir_xattn":
+        "ewvit_fused_bidir_xattn_general":
             [_C_VOID_P] * 6 + [_C_INT] * 5 + [_C_VOID_P],
     },
     "winograd": {
@@ -78,7 +84,8 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 LAUNCHES: Dict[str, int] = {
     "haar_dwt2d": 0,
     "dw_bn_silu_mean": 0,
-    "fused_bidirectional_cross_attention": 0,
+    "fused_bidirectional_cross_attention": 0,          # K4's cluster kernel (D = 128)
+    "fused_bidirectional_cross_attention_general": 0,  # K4 at other widths
     "fused_multiscale_winograd": 0,
     "conv3x3_winograd": 0,
     # not a kernel: U folds and packs for K3 on the card (models/mwt.py), each
@@ -88,6 +95,9 @@ LAUNCHES: Dict[str, int] = {
     # not a kernel either: K2's BN folds and packs on the card
     # (models/efficientnet.py), kept per model like U
     "dw_se_fold": 0,
+    # nor this: K4's weight packs on the card (models/layers.py), kept per
+    # model like U
+    "xattn_pack": 0,
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

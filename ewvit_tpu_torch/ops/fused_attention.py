@@ -14,10 +14,16 @@ space. LayerNorm eps is 1e-6 (flax default). All math is fp32.
   ``BidirectionalCrossTransformer`` -> ``mats [2*depth, D, 4D]`` (Wq | Wkv |
   Wo, [in, out] layout) and ``smalls [2*depth, 3, D]`` (ln scale, ln bias,
   out bias), the TPU kernel's packing.
+- :func:`pack_xattn` / :func:`unpack_xattn` -- ``(mats, smalls)`` <-> the
+  cluster kernel's layout, one contiguous run per (block, CTA).
 - :func:`fused_cross_attention_plain` -- plain PyTorch version.
-- :func:`fused_bidirectional_cross_attention` -- K4, the hand-written kernel
-  ``csrc/fused_attention.cu`` for CUDA tensors; CPU tensors take the plain
-  version.
+- :func:`fused_bidirectional_cross_attention` -- K4 for CUDA tensors, the
+  hand-written kernels of ``csrc/fused_attention.cu``; CPU tensors take the
+  plain version. At D = 128 with a head width that is a multiple of 16
+  (:func:`cluster_route`) it packs the weights and runs the cluster kernel;
+  any other shape runs the general kernel on ``mats``/``smalls``.
+- :func:`fused_bidirectional_cross_attention_packed` -- the cluster kernel
+  on weights packed once (``BidirectionalCrossTransformer`` keeps them).
 """
 
 from __future__ import annotations
@@ -29,6 +35,9 @@ import torch
 from ewvit_tpu_torch.ops import extension
 
 LN_EPS = 1e-6
+CLUSTER = 8          # CTAs per cluster; CTA c owns columns [c*D/8, (c+1)*D/8)
+CLUSTER_D = 128      # the one width the cluster kernel compiles in
+CLUSTER_ROWS = 8     # token rows per cluster (kR in csrc/fused_attention.cu)
 
 
 def supports(dim: int, tokens: int, deterministic: bool) -> bool:
@@ -68,6 +77,49 @@ def pack_params(flat: Mapping[str, torch.Tensor], depth: int
                                        flat[f"{norm}{i}_bias"],
                                        flat[f"{side}{i}_bo"]]).float())
     return torch.stack(mats).contiguous(), torch.stack(smalls).contiguous()
+
+
+def cluster_route(dim: int, heads: int) -> bool:
+    """Shapes the cluster kernel takes: D = 128, each CTA's 16 columns
+    inside one head (``dh % 16 == 0``: heads 1, 2, 4 or 8)."""
+    return dim == CLUSTER_D and dim % heads == 0 and (dim // heads) % (dim // CLUSTER) == 0
+
+
+def pack_xattn(mats: torch.Tensor, smalls: torch.Tensor) -> torch.Tensor:
+    """``mats [B, D, 4D]``, ``smalls [B, 3, D]`` (B = 2*depth blocks) -> the
+    cluster kernel's ``[B, 8, D*4w + 2D + w]`` fp32, w = D/8: for block b
+    and CTA c, rows k of ``[Wq | Wk | Wv | Wo][k, c*w:(c+1)*w]`` (4w floats
+    each), then the LayerNorm scale and bias (all D) and the out bias's w
+    columns. Each (b, c) is one contiguous run, copied by one bulk copy."""
+    b, d, _ = mats.shape
+    w = d // CLUSTER
+    m = mats.float().reshape(b, d, 4, CLUSTER, w).permute(0, 3, 1, 2, 4)
+    ln = smalls[:, :2].float().reshape(b, 1, 2 * d).expand(b, CLUSTER, 2 * d)
+    bo = smalls[:, 2].float().reshape(b, CLUSTER, w)
+    return torch.cat([m.reshape(b, CLUSTER, 4 * d * w), ln, bo], dim=2).contiguous()
+
+
+def unpack_xattn(packed: torch.Tensor, dim: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inverse of :func:`pack_xattn`: ``(mats, smalls)``."""
+    b, w = packed.shape[0], dim // CLUSTER
+    n = 4 * dim * w
+    mats = packed[:, :, :n].reshape(b, CLUSTER, dim, 4, w).permute(0, 2, 3, 1, 4)
+    ln = packed[:, 0, n:n + 2 * dim].reshape(b, 2, dim)
+    bo = packed[:, :, n + 2 * dim:].reshape(b, 1, dim)
+    return mats.reshape(b, dim, 4 * dim).contiguous(), torch.cat([ln, bo], dim=1)
+
+
+def _check_packed(space, freq, packed, heads):
+    n, d = space.shape
+    w = d // CLUSTER
+    if freq.shape != space.shape:
+        raise ValueError(f"space {tuple(space.shape)} and freq {tuple(freq.shape)} differ")
+    if d % CLUSTER or packed.dim() != 3 or packed.shape[0] % 2 or \
+            tuple(packed.shape[1:]) != (CLUSTER, 4 * d * w + 2 * d + w):
+        raise ValueError(f"packed must be [2*depth, {CLUSTER}, {4 * d * w + 2 * d + w}] "
+                         f"(pack_xattn) for D = {d}, got {tuple(packed.shape)}")
+    if d % heads:
+        raise ValueError(f"dim {d} not divisible by heads {heads}")
 
 
 def _check(space, freq, mats, smalls, heads):
@@ -118,27 +170,71 @@ def fused_cross_attention_plain(space: torch.Tensor, freq: torch.Tensor,
     return s.to(space.dtype), f.to(freq.dtype)
 
 
+def _check_tokens(space, freq):
+    for name, t in (("space", space), ("freq", freq)):
+        extension.check_cuda_tensor(t, name, space.dtype)
+
+
+def _launch_cluster(space, freq, packed, heads):
+    """The cluster kernel on checked CUDA tensors."""
+    if not cluster_route(space.shape[1], heads):
+        raise ValueError(f"the cluster kernel takes D = {CLUSTER_D} with a head width "
+                         f"that is a multiple of 16, got D = {space.shape[1]}, heads {heads}")
+    extension.check_cuda_tensor(packed, "packed", torch.float32)
+    so, fo = torch.empty_like(space), torch.empty_like(freq)
+    extension.launch("fused_attention", "ewvit_fused_bidir_xattn_cluster",
+                     "fused_bidirectional_cross_attention",
+                     space.data_ptr(), freq.data_ptr(), packed.data_ptr(),
+                     so.data_ptr(), fo.data_ptr(), space.shape[0],
+                     packed.shape[0] // 2, heads, extension.dtype_code(space))
+    return so, fo
+
+
+def _launch_general(space, freq, mats, smalls, heads):
+    """The general kernel (the first design, any D % 4 == 0) on checked CUDA
+    tensors."""
+    n, d = space.shape
+    so, fo = torch.empty_like(space), torch.empty_like(freq)
+    extension.launch("fused_attention", "ewvit_fused_bidir_xattn_general",
+                     "fused_bidirectional_cross_attention_general",
+                     space.data_ptr(), freq.data_ptr(), mats.data_ptr(),
+                     smalls.data_ptr(), so.data_ptr(), fo.data_ptr(),
+                     n, d, mats.shape[0] // 2, heads,
+                     extension.dtype_code(space))
+    return so, fo
+
+
+def fused_bidirectional_cross_attention_packed(space: torch.Tensor, freq: torch.Tensor,
+                                               packed: torch.Tensor, *, heads: int = 4
+                                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4's cluster kernel with weights from :func:`pack_xattn` on CUDA
+    tensors (D = 128, :func:`cluster_route`; anything else raises), the
+    plain version on CPU tensors."""
+    _check_packed(space, freq, packed, heads)
+    if space.device.type == "cpu":
+        return fused_cross_attention_plain(space, freq, *unpack_xattn(packed, space.shape[1]),
+                                           heads)
+    _check_tokens(space, freq)
+    return _launch_cluster(space, freq, packed, heads)
+
+
 def fused_bidirectional_cross_attention(space: torch.Tensor, freq: torch.Tensor,
                                         mats: torch.Tensor, smalls: torch.Tensor,
                                         *, heads: int = 4
                                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K4 on CUDA tensors, :func:`fused_cross_attention_plain` on CPU tensors.
 
-    ``space``, ``freq``: ``[N, D]`` tokens; returns the updated pair.
+    ``space``, ``freq``: ``[N, D]`` tokens; returns the updated pair. On the
+    card, shapes of :func:`cluster_route` pack the weights (a few launches
+    per call; :func:`fused_bidirectional_cross_attention_packed` takes them
+    packed once) and run the cluster kernel; others run the general kernel.
     """
     if space.device.type == "cpu":
         return fused_cross_attention_plain(space, freq, mats, smalls, heads)
     _check(space, freq, mats, smalls, heads)
-    for name, t in (("space", space), ("freq", freq)):
-        extension.check_cuda_tensor(t, name, space.dtype)
+    _check_tokens(space, freq)
     extension.check_cuda_tensor(mats, "mats", torch.float32)
     extension.check_cuda_tensor(smalls, "smalls", torch.float32)
-    n, d = space.shape
-    so, fo = torch.empty_like(space), torch.empty_like(freq)
-    extension.launch("fused_attention", "ewvit_fused_bidir_xattn",
-                     "fused_bidirectional_cross_attention",
-                     space.data_ptr(), freq.data_ptr(), mats.data_ptr(),
-                     smalls.data_ptr(), so.data_ptr(), fo.data_ptr(),
-                     n, d, mats.shape[0] // 2, heads,
-                     extension.dtype_code(space))
-    return so, fo
+    if cluster_route(space.shape[1], heads):
+        return _launch_cluster(space, freq, pack_xattn(mats, smalls), heads)
+    return _launch_general(space, freq, mats, smalls, heads)

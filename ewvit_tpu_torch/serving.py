@@ -5,8 +5,8 @@
   device (``ops/preprocess.py``);
 - casts every conv and linear weight to the compute dtype once (norms keep
   fp32 parameters and fold them per call, except where a kernel keeps its
-  folded weights: K3's U, K2's depthwise weights), as ewvit_tpu's
-  ``cast_kernels_for_inference`` pre-casts kernels;
+  folded weights: K3's U, K2's depthwise weights, K4's packed weights), as
+  ewvit_tpu's ``cast_kernels_for_inference`` pre-casts kernels;
 - runs the eval ``video_forward`` (``dynamic`` mode, the one ported);
 - ``predict_stream`` enqueues batch N+1 before it waits for batch N, whose
   probabilities were queued for a device-to-host copy right after its
@@ -26,14 +26,15 @@ import torch.nn as nn
 from ewvit_tpu_torch.device import DeviceLike, compute_dtype, resolve_device
 from ewvit_tpu_torch.models.detector import DeepfakeDetector, video_forward
 from ewvit_tpu_torch.models.efficientnet import MBConv
+from ewvit_tpu_torch.models.layers import BidirectionalCrossTransformer
 from ewvit_tpu_torch.models.mwt import MWT
 from ewvit_tpu_torch.ops.preprocess import preprocess_batch
 
 
 def cast_for_inference(model: nn.Module, dtype: torch.dtype) -> nn.Module:
     """Cast conv and linear weights and biases to ``dtype`` in place, then
-    fold and pack the fused MWT tail's U and K2's depthwise weights once
-    (eval mode)."""
+    fold and pack the fused MWT tail's U, K2's depthwise weights and K4's
+    weights once (eval mode)."""
     for m in model.modules():
         if isinstance(m, (nn.Conv2d, nn.Linear)):
             m.to(dtype)
@@ -43,6 +44,8 @@ def cast_for_inference(model: nn.Module, dtype: torch.dtype) -> nn.Module:
                 m._tail_weights(dtype)
             elif isinstance(m, MBConv) and m.fuse_dwse:
                 m._dwse_weights()
+            elif isinstance(m, BidirectionalCrossTransformer) and m.fuses():
+                m._xattn_weights()
     return model
 
 
