@@ -19,20 +19,32 @@ Phases (any failure raises and the exit code is nonzero):
               exists, a single PyTorch call computing the same function,
               with CUDA events (K2 also with a cold L2; K4's cluster kernel
               beside its general kernel);
-4. serve   -- builds the full-width dynamic detector (ModelConfig(): 224 px,
-              V2-S, dama_dim 128, 4 heads, 3 levels) with seeded random
-              weights and serves it on two paths: the three kernel flags on
-              (K1, K2, K4), and all four (use_fused_mwt_tail adds K3). For
-              each path it zeroes the launch counters, serves requests of
-              uint8 clips [2, 40, 224, 224, 3] through InferenceEngine.predict
-              and predict_stream (frame_chunk 32: one full chunk and one
-              masked tail, 64 flattened rows), reads the counters, checks the
-              probabilities, and holds the outputs against the same weights
-              served on the plain (direct-conv) modules in fp32; a served
-              request must fold or pack no weights (U, K2's depthwise
-              weights, K4's weights), and the host cost of the kept
-              weights' key check is printed;
-5. report  -- one JSON line describing every kernel, then the final line
+4. serve   -- builds the full-width detector (ModelConfig(): 224 px, V2-S
+              and B0 backbones, dama_dim 128, 4 heads, 3 levels) with one
+              set of seeded random weights and serves it on four paths:
+              dynamic with the three kernel flags on (K1, K2, K4) and with
+              all four (use_fused_mwt_tail adds K3); sfe_only (B0 + ViT cls
+              head) with use_pallas_dwse (K2); sfe_mwt (B0 SFE + the
+              standalone MWT + fusion gate) with use_pallas_dwt,
+              use_pallas_dwse and use_fused_mwt_tail (K1, K2, K3). For each
+              path it zeroes the launch counters, serves requests of uint8
+              clips [2, 40, 224, 224, 3] through InferenceEngine.predict and
+              predict_stream (frame_chunk 32: one full chunk and one masked
+              tail, 64 flattened rows), reads the counters, checks the
+              probabilities, and holds the outputs, in bf16 and in fp32,
+              against the same weights served on the plain (direct-conv)
+              modules in fp32; a served request must fold or pack no weights
+              (U, K2's depthwise weights, K4's weights), the sfe paths must
+              not launch K4, and the host cost of the kept weights' key
+              check is printed;
+5. checkpoint -- saves the weights as a reference-layout .pth
+              ({"model_state_dict": ...} with "module." prefixes), serves
+              it on every path through InferenceEngine.from_checkpoint (the
+              probabilities must equal the served ones bit for bit), and
+              runs evaluation.evaluate on labelled in-memory batches with a
+              padded tail in each mode (finite metrics; predictions equal
+              the served probabilities);
+6. report  -- one JSON line describing every kernel, then the final line
               {"ok": true, "device": {...}}.
 
 Without a CUDA device, or run outside the repository, it exits nonzero and
@@ -42,9 +54,11 @@ prints no result. It imports nothing of JAX or of the ewvit_tpu package.
 from __future__ import annotations
 
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -52,11 +66,11 @@ import torch
 import torch.nn.functional as F
 
 from ewvit_tpu_torch import InferenceEngine, ModelConfig, build_detector, video_forward
-from ewvit_tpu_torch.models.detector import random_detector
-from ewvit_tpu_torch.models.efficientnet import MBConv
-from ewvit_tpu_torch.models.layers import BidirectionalCrossTransformer
-from ewvit_tpu_torch.models.mwt import MWT
+from ewvit_tpu_torch.configs import B0_BLOCKS
 from ewvit_tpu_torch.device import resolve_device
+from ewvit_tpu_torch.evaluation import evaluate, load_model
+from ewvit_tpu_torch.models.detector import random_detector
+from ewvit_tpu_torch.models.kept import KeepsWeights
 from ewvit_tpu_torch.ops import extension
 from ewvit_tpu_torch.ops.dw_se import (
     dw_bn_silu_mean,
@@ -105,7 +119,8 @@ XATTN_F32_TOL = dict(atol=1e-4, rtol=1e-4)
 WINO_F32_TOL = dict(atol=1e-4, rtol=1e-4)
 BF16_TOL = dict(atol=1e-2, rtol=1.6e-2)   # one bf16 rounding of the output
 # End to end, (features, logits) as (atol, rtol): video-mean features
-# 'fused'/'space'/'freq' [B, 128] and logits [B, 1] of the same weights.
+# ('fused'/'space'/'freq' or 'sfe'/'mwt', [B, 128]) and logits [B, 1] of the
+# same weights.
 OUT_TOL_F32 = ((1e-3, 1e-3), (1e-3, 0.0))     # fp32 kernels vs fp32 plain modules
 # bf16 vs fp32 is a sanity check: ~60 layers of bf16 rounding drift the
 # features by a few per cent of their range (0.08 of ~2.8 measured on H100).
@@ -609,15 +624,15 @@ def haar_bank(c, dtype, dev):
     return b[:, None].repeat(c, 1, 1, 1).to(dev, dtype)
 
 
-def serve(cfg, state, requests, *, count):
-    """Serve ``requests`` on a fresh engine holding ``state``; with ``count``
-    the launch counters are zeroed after warmup and read after the run.
-    Returns probabilities (predict and predict_stream), per-request latency,
-    stream time, the launch counts, and the video-level outputs of
+def serve(cfg, mode, state, requests, *, count):
+    """Serve ``requests`` in ``mode`` on a fresh engine holding ``state``; with
+    ``count`` the launch counters are zeroed after warmup and read after the
+    run. Returns probabilities (predict and predict_stream), per-request
+    latency, stream time, the launch counts, and the video-level outputs of
     ``video_forward`` (taken after the counts are read)."""
     model = build_detector(cfg, device="cuda")
     model.load_state_dict(state, strict=True)
-    engine = InferenceEngine(model, frame_chunk=32, device="cuda")
+    engine = InferenceEngine(model, mode=mode, frame_chunk=32, device="cuda")
     engine.warmup(*requests[0].shape[:2])
     if count:
         extension.reset_launches()
@@ -633,7 +648,7 @@ def serve(cfg, state, requests, *, count):
     key_us = kept_check_us(engine.model, engine.dtype) if count else None
     outs = [video_forward(engine.model,
                           preprocess_batch(torch.from_numpy(c).cuda(), engine.dtype),
-                          frame_chunk=32) for c in requests]
+                          mode=mode, frame_chunk=32) for c in requests]
     outputs = {k: torch.cat([o[k].float().cpu() for o in outs]) for k in outs[0]}
     del engine, model
     torch.cuda.empty_cache()
@@ -642,18 +657,16 @@ def serve(cfg, state, requests, *, count):
 
 
 def kept_check_us(model, dtype, calls=2000):
-    """Host microseconds per call of each kept-weight getter when nothing
-    changed: the key check (data_ptr and _version of every tensor the fold
-    reads) and the lookup; a getter that folded again would count a fold
-    here and fail the serve phase."""
+    """Host microseconds per call of each kind of kept-weight getter (one
+    module per class: MBConv and MBConvBlock keep K2's fold, MWT K3's U,
+    BidirectionalCrossTransformer K4's pack) when nothing changed: the key
+    check (data_ptr and _version of every tensor the fold reads) and the
+    lookup; a getter that folded again would count a fold here and fail the
+    serve phase."""
     getters = {}
     for m in model.modules():
-        if isinstance(m, MBConv) and m.fuse_dwse:
-            getters.setdefault("MBConv (K2)", m._dwse_weights)
-        elif isinstance(m, MWT) and m.use_fused_tail:
-            getters.setdefault("MWT (K3)", lambda m=m: m._tail_weights(dtype))
-        elif isinstance(m, BidirectionalCrossTransformer) and m.fuses():
-            getters.setdefault("cross-attention (K4)", m._xattn_weights)
+        if isinstance(m, KeepsWeights) and m.kept_weights(dtype) is not None:
+            getters.setdefault(type(m).__name__, lambda m=m: m.kept_weights(dtype))
     out = {}
     for name, fn in getters.items():
         before = dict(extension.LAUNCHES)
@@ -674,80 +687,161 @@ def check_probs(served):
             fail(f"predict_stream {q} differs from predict {p}")
 
 
-def phase_serve():
-    """Serve both paths in bf16 with launch counts, then hold them, and their
-    fp32 twins, against the fp32 plain (direct-conv) modules. Returns the
-    launch counts of each path."""
-    rng = np.random.default_rng(0)
-    requests = [rng.integers(0, 256, (2, 40, 224, 224, 3), dtype=np.uint8)
-                for _ in range(3)]
-    flags = dict(use_pallas_dwt=True, use_pallas_dwse=True, use_pallas_dama=True)
-    paths = {"three_flags": ModelConfig().replace(**flags),
-             "fused_mwt_tail": ModelConfig().replace(use_fused_mwt_tail=True, **flags)}
-    for cfg in paths.values():
+# (config, mode) of each served path; K4 and K5 are in no sfe path
+FLAGS = dict(use_pallas_dwt=True, use_pallas_dwse=True, use_pallas_dama=True)
+PATHS = {
+    "three_flags": (ModelConfig().replace(**FLAGS), "dynamic"),
+    "fused_mwt_tail": (ModelConfig().replace(use_fused_mwt_tail=True, **FLAGS), "dynamic"),
+    "sfe_only": (ModelConfig().replace(use_pallas_dwse=True), "sfe_only"),
+    "sfe_mwt": (ModelConfig().replace(use_pallas_dwt=True, use_pallas_dwse=True,
+                                      use_fused_mwt_tail=True), "sfe_mwt"),
+}
+MUST_LAUNCH = {
+    "three_flags": ("haar_dwt2d", "dw_bn_silu_mean", "fused_bidirectional_cross_attention"),
+    "fused_mwt_tail": ("haar_dwt2d", "dw_bn_silu_mean", "fused_bidirectional_cross_attention",
+                       "fused_multiscale_winograd"),
+    "sfe_only": ("dw_bn_silu_mean",),
+    "sfe_mwt": ("haar_dwt2d", "dw_bn_silu_mean", "fused_multiscale_winograd"),
+}
+# K2 launches once per stride-1 B0 block (all carry SE) per chunk: 12
+B0_DWSE_PER_CHUNK = sum(1 for c in B0_BLOCKS for r in range(c.repeats)
+                        if (c.stride if r == 0 else 1) == 1)
+
+
+def phase_serve(requests, state):
+    """Serve every path in bf16 with launch counts, then hold it, and its
+    fp32 twin, against the fp32 plain (direct-conv) modules in its mode.
+    Returns each path's run (probabilities, latency, launch counts)."""
+    for cfg, _ in PATHS.values():
         if cfg.compute_dtype != "bfloat16" or cfg.arch.image_size != 224:
             fail(f"unexpected serving config {cfg}")
-    state = random_detector(paths["three_flags"], device="cuda", seed=0).state_dict()
     # K3 launches once per chunk: predict and predict_stream each serve every
     # request, in ceil(K / frame_chunk) chunks
     chunks = 2 * len(requests) * -(-requests[0].shape[1] // 32)
-    must_launch = {"three_flags": ("haar_dwt2d", "dw_bn_silu_mean",
-                                   "fused_bidirectional_cross_attention"),
-                   "fused_mwt_tail": ("haar_dwt2d", "dw_bn_silu_mean",
-                                      "fused_bidirectional_cross_attention",
-                                      "fused_multiscale_winograd")}
 
-    served, launches = {}, {}
-    for name, cfg in paths.items():
-        run = served[name] = serve(cfg, state, requests, count=True)
-        launches[name] = run["launches"]
-        print(f"[serve] {name} bf16: per-request latency ms "
+    served = {}
+    for name, (cfg, mode) in PATHS.items():
+        run = served[name] = serve(cfg, mode, state, requests, count=True)
+        n = run["launches"]
+        print(f"[serve] {name} ({mode}) bf16: per-request latency ms "
               f"{[round(v, 3) for v in run['lat']]}, stream of {len(requests)} in "
-              f"{run['stream_ms']:.3f} ms; launches {run['launches']}")
+              f"{run['stream_ms']:.3f} ms; launches {n}")
         # conv3x3_winograd (K5) is in no path: the JAX package wires it into
         # no model, so it is held to its plain version in phase_kernels only
-        for k in must_launch[name]:
-            if run["launches"][k] == 0:
+        for k in MUST_LAUNCH[name]:
+            if n[k] == 0:
                 fail(f"kernel {k} was never launched on the {name} path")
-        check_probs(run)
-        print(f"[serve] {name} probabilities {[p.tolist() for p in run['probs']]}")
-    n_k3 = launches["fused_mwt_tail"]["fused_multiscale_winograd"]
-    if n_k3 != chunks:
-        fail(f"fused_multiscale_winograd launched {n_k3} times for {chunks} chunks")
-    if launches["three_flags"]["fused_multiscale_winograd"]:
-        fail("fused_multiscale_winograd launched on the three-flag path")
-    # the fused tail folds and packs U, and each SE MBConv its depthwise
-    # weights, once per model (at cast_for_inference), never per request
-    for name, n in launches.items():
+        want_k3 = chunks if "fused_multiscale_winograd" in MUST_LAUNCH[name] else 0
+        if n["fused_multiscale_winograd"] != want_k3:
+            fail(f"fused_multiscale_winograd launched {n['fused_multiscale_winograd']} "
+                 f"times on {name}, expected {want_k3} ({chunks} chunks)")
+        if mode != "dynamic":
+            want = dict(dw_bn_silu_mean=B0_DWSE_PER_CHUNK * chunks,
+                        haar_dwt2d=3 * chunks if mode == "sfe_mwt" else 0,
+                        fused_bidirectional_cross_attention=0)
+            for k, v in want.items():
+                if n[k] != v:
+                    fail(f"{k} launched {n[k]} times on {name}, expected {v}")
+            if "MBConvBlock" not in run["key_us"]:
+                fail(f"{name}: the B0 blocks keep no K2 fold")
+        # every kept weight is folded once per model (at cast_for_inference),
+        # never per request
         for fold in ("winograd_u_fold", "dw_se_fold", "xattn_pack"):
             if n[fold]:
                 fail(f"{fold}: {n[fold]} folds while serving {name}")
         # D = 128 takes the cluster kernel, never the general one
         if n["fused_bidirectional_cross_attention_general"]:
             fail(f"the general cross-attention kernel ran on the {name} path")
+        check_probs(run)
+        print(f"[serve] {name} probabilities {[p.tolist() for p in run['probs']]}")
         print(f"[serve] {name}: kept-weight key check, host us per call: "
-              f"{ {k: round(v, 3) for k, v in served[name]['key_us'].items()} }")
-    print("[serve] latency ms side by side (three_flags | fused_mwt_tail): " + ", ".join(
-        f"{a:.3f} | {b:.3f}" for a, b in zip(served["three_flags"]["lat"],
-                                             served["fused_mwt_tail"]["lat"])))
-    print(f"[serve] stream of {len(requests)} ms (three_flags | fused_mwt_tail): "
-          f"{served['three_flags']['stream_ms']:.3f} | "
-          f"{served['fused_mwt_tail']['stream_ms']:.3f}")
+              f"{ {k: round(v, 3) for k, v in run['key_us'].items()} }")
+    print(f"[serve] latency ms side by side ({' | '.join(served)}): " + ", ".join(
+        " | ".join(f"{v:.3f}" for v in lat)
+        for lat in zip(*(r["lat"] for r in served.values()))))
+    print(f"[serve] stream of {len(requests)} ms ({' | '.join(served)}): "
+          + " | ".join(f"{r['stream_ms']:.3f}" for r in served.values()))
 
     f32 = dict(compute_dtype="float32")
-    p32 = serve(ModelConfig().replace(**f32), state, requests, count=False)
-    print(f"[serve] logits: fp32 plain {p32['outputs']['logits'].flatten().tolist()}")
-    for name, cfg in paths.items():
-        k32 = serve(cfg.replace(**f32), state, requests, count=False)
+    plain = {}
+    for name, (cfg, mode) in PATHS.items():
+        if mode not in plain:
+            plain[mode] = serve(ModelConfig().replace(**f32), mode, state, requests,
+                                count=False)["outputs"]
+            print(f"[serve] {mode} logits: fp32 plain {plain[mode]['logits'].flatten().tolist()}")
+        k32 = serve(cfg.replace(**f32), mode, state, requests, count=False)
         for what, run, tols in ((f"fp32 {name} vs fp32 plain path", k32, OUT_TOL_F32),
                                 (f"bf16 {name} vs fp32 plain path", served[name],
                                  OUT_TOL_BF16)):
-            for key, ref in p32["outputs"].items():
+            for key, ref in plain[mode].items():
                 atol, rtol = tols[key == "logits"]
                 e = max_err(run["outputs"][key], ref, atol, rtol, f"{what}: {key}")
                 print(f"[serve] {what}: {key} max abs diff {e:.3e} (|ref| max "
                       f"{ref.abs().max().item():.3e}; atol {atol}, rtol {rtol})")
-    return launches
+    return served
+
+
+class PaddedBatches:
+    """In-memory labelled batches of 2 clips, the last one padded with a zero
+    clip; ``true_len()`` gives the real count, as the data pipeline's loader
+    does."""
+
+    def __init__(self, clips, labels):
+        self.clips, self.labels = clips, labels
+
+    def true_len(self):
+        return len(self.labels)
+
+    def __iter__(self):
+        for i in range(0, len(self.labels), 2):
+            c, y = self.clips[i:i + 2], self.labels[i:i + 2]
+            if len(y) < 2:
+                c = np.concatenate([c, np.zeros_like(c[:1])])
+                y = np.concatenate([y, [0]])
+            yield c, y
+
+
+def phase_checkpoint(requests, state, served):
+    """The weights as a reference-layout .pth: served through
+    ``from_checkpoint`` on every path (bit for bit the served probabilities)
+    and evaluated in each mode on labelled in-memory batches."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "detector.pth")
+        torch.save({"model_state_dict": {f"module.{k}": v.cpu() for k, v in state.items()},
+                    "epoch": 0}, path)
+        for name, (cfg, mode) in PATHS.items():
+            engine = InferenceEngine.from_checkpoint(path, cfg, mode=mode, frame_chunk=32,
+                                                     device="cuda")
+            probs = [engine.predict(c) for c in requests]
+            for p, q in zip(probs, served[name]["probs"]):
+                if not np.array_equal(p, q):
+                    fail(f"{name}: from_checkpoint gives {p}, the served engine {q}")
+            del engine
+        print(f"[checkpoint] {os.path.getsize(path) / 2**20:.1f} MiB .pth "
+              "(model_state_dict, module. prefixes): from_checkpoint probabilities equal "
+              "the served ones bit for bit on every path")
+
+        # 5 labelled clips (the 3 requests' 6 less one) in batches of 2, the
+        # tail padded; labels of both classes so AUC, EER and AP are defined
+        clips = np.concatenate(requests)[:5]
+        labels = np.array([0, 1, 1, 0, 1])
+        for name in ("fused_mwt_tail", "sfe_only", "sfe_mwt"):
+            cfg, mode = PATHS[name]
+            m = evaluate(load_model(path, cfg, device="cuda"), PaddedBatches(clips, labels),
+                         mode=mode, frame_chunk=32, device="cuda")
+            if m["labels"] != labels.tolist():
+                fail(f"evaluate {mode}: labels {m['labels']}")
+            want = np.concatenate(served[name]["probs"])[:5]
+            if np.abs(np.asarray(m["preds"]) - want).max() > 1e-6:
+                fail(f"evaluate {mode}: predictions {m['preds']} differ from the served "
+                     f"probabilities {want.tolist()}")
+            report = {k: v for k, v in m.items() if k not in ("preds", "labels")}
+            print(f"[checkpoint] evaluate {mode} ({name} flags): {json.dumps(report)}")
+            for k in ("loss", "accuracy", "auc", "eer", "eer_threshold", "ap", "precision",
+                      "recall", "f1", "orth_loss"):
+                if not np.isfinite(m[k]):
+                    fail(f"evaluate {mode}: {k} = {m[k]} is not finite")
+            torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -758,7 +852,13 @@ def main() -> int:
     dev = phase_device()
     phase_build()
     report = phase_kernels(dev)
-    launches = phase_serve()
+    rng = np.random.default_rng(0)
+    requests = [rng.integers(0, 256, (2, 40, 224, 224, 3), dtype=np.uint8)
+                for _ in range(3)]
+    state = random_detector(PATHS["three_flags"][0], device="cuda", seed=0).state_dict()
+    served = phase_serve(requests, state)
+    phase_checkpoint(requests, state, served)
+    launches = {name: run["launches"] for name, run in served.items()}
     for r in report:
         r["launches_by_path"] = {p: n[r["name"]] for p, n in launches.items()}
         if r["name"] != "conv3x3_winograd":   # K5: the kernels phase's count

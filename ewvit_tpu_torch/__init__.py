@@ -1,18 +1,25 @@
 """ewvit_tpu_torch: the PyTorch/CUDA port of ewvit_tpu for NVIDIA Hopper.
 
-Serves the ``dynamic`` DeepfakeDetector on hand-written CUDA kernels (Haar
-DWT, depthwise+BN+SiLU+SE-mean, DAMA cross-attention; ``csrc/``). Imports
-torch and numpy only, never JAX or the ewvit_tpu package. Entry points run on
-the GPU unless the caller passes ``device="cpu"``.
+Serves the DeepfakeDetector in its three ablation modes (``dynamic``,
+``sfe_only``, ``sfe_mwt``; ``InferenceEngine(mode=...)``, also
+``InferenceEngine.from_checkpoint`` on a reference ``.pth``) on hand-written
+CUDA kernels (Haar DWT, depthwise+BN+SiLU+SE-mean, the Winograd MWT tail,
+DAMA cross-attention; ``csrc/``), and evaluates it (``evaluation.evaluate``:
+the eval losses and the metric suite). Imports torch and numpy only,
+never JAX or the ewvit_tpu package. Entry points run on the GPU unless the
+caller passes ``device="cpu"``.
 """
 
 from ewvit_tpu_torch.configs import ArchConfig, ModelConfig
+from ewvit_tpu_torch.evaluation import evaluate, load_model
 from ewvit_tpu_torch.models.detector import (
+    ABLATION_MODES,
     DeepfakeDetector,
     build_detector,
     video_forward,
 )
 from ewvit_tpu_torch.serving import InferenceEngine
 
-__all__ = ["ArchConfig", "ModelConfig", "DeepfakeDetector", "build_detector",
-           "video_forward", "InferenceEngine"]
+__all__ = ["ABLATION_MODES", "ArchConfig", "ModelConfig", "DeepfakeDetector",
+           "build_detector", "evaluate", "load_model", "video_forward",
+           "InferenceEngine"]

@@ -2,10 +2,10 @@
 
 Own copy of ``ewvit_tpu/configs.py`` (``ArchConfig``, ``ModelConfig``) and of
 the backbone block tables of ``ewvit_tpu/models/efficientnet.py``
-(``BlockCfg``, ``V2S_BLOCKS``, ``V2S_MICRO``, ``BackboneSpec``). The port
-imports nothing of the JAX package, so the values are repeated here and the
-CPU tests hold the two copies equal. ``TrainConfig`` and the B0 tables arrive
-with the slices that use them.
+(``BlockCfg``, ``B0_BLOCKS``, ``B0_MICRO``, ``V2S_BLOCKS``, ``V2S_MICRO``,
+``BackboneSpec``). The port imports nothing of the JAX package, so the values
+are repeated here and the CPU tests hold the two copies equal.
+``TrainConfig`` arrives with the train slice.
 """
 
 from __future__ import annotations
@@ -43,6 +43,17 @@ class BlockCfg:
     fused: bool = False
 
 
+# efficientnet_pytorch 'efficientnet-b0' blocks_args (width/depth multiplier 1.0)
+B0_BLOCKS: Tuple[BlockCfg, ...] = (
+    BlockCfg(1, 3, 1, 1, 32, 16),
+    BlockCfg(2, 3, 2, 6, 16, 24),
+    BlockCfg(2, 5, 2, 6, 24, 40),
+    BlockCfg(3, 3, 2, 6, 40, 80),
+    BlockCfg(3, 5, 1, 6, 80, 112),
+    BlockCfg(4, 5, 2, 6, 112, 192),
+    BlockCfg(1, 3, 1, 6, 192, 320),
+)
+
 # torchvision efficientnet_v2_s inverted_residual_setting
 V2S_BLOCKS: Tuple[BlockCfg, ...] = (
     BlockCfg(2, 3, 1, 1, 24, 24, se_ratio=0.0, fused=True),
@@ -63,10 +74,21 @@ class BackboneSpec:
     head_ch: int
 
 
+B0_FULL = BackboneSpec(B0_BLOCKS, stem_ch=32, head_ch=1280)
 V2S_FULL = BackboneSpec(V2S_BLOCKS, stem_ch=24, head_ch=1280)
 
-# 3 real blocks: FusedMBConv, fused stride-2, MBConv + SE; a 32px input lands
-# on a 4x4 map, so patch_size 4 keeps the 1-patch invariant.
+# 3 real blocks each, two stride-2 stages after the stem: a 32px input lands
+# on a 4x4 map, so patch_size 4 keeps the 1-patch invariant. B0: MBConv
+# without expand + SE, expand + stride 2 + SE, a second stride-2 stage.
+B0_MICRO = BackboneSpec(
+    blocks=(
+        BlockCfg(1, 3, 1, 1, 8, 8),
+        BlockCfg(1, 3, 2, 2, 8, 16),
+        BlockCfg(1, 3, 2, 2, 16, 16),
+    ),
+    stem_ch=8, head_ch=32,
+)
+# V2-S: FusedMBConv, fused stride-2, MBConv + SE.
 V2S_MICRO = BackboneSpec(
     blocks=(
         BlockCfg(1, 3, 1, 1, 8, 8, se_ratio=0.0, fused=True),
@@ -117,8 +139,14 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
     @property
+    def b0_spec(self) -> BackboneSpec:
+        """The B0 stack of the ``sfe``/``sfe_cls`` branches (a ``None`` slot
+        means the full stack, as in the JAX package)."""
+        return (self.backbone_spec[0] if self.backbone_spec else None) or B0_FULL
+
+    @property
     def v2s_spec(self) -> BackboneSpec:
-        return self.backbone_spec[1] if self.backbone_spec else V2S_FULL
+        return (self.backbone_spec[1] if self.backbone_spec else None) or V2S_FULL
 
     @classmethod
     def tiny(cls) -> "ModelConfig":
@@ -132,16 +160,11 @@ class ModelConfig:
 
     @classmethod
     def micro(cls) -> "ModelConfig":
-        """Truncated 3-block backbones at 32px (compile-time-bounded tests).
-
-        The first element of ``backbone_spec`` is the B0 stack, which the port
-        does not build yet; it is kept as ``None`` so the V2-S slot lines up
-        with the JAX package's ``(B0_MICRO, V2S_MICRO)`` pair.
-        """
+        """Truncated 3-block backbones at 32px (compile-time-bounded tests)."""
         arch = ArchConfig(
             image_size=32, patch_size=4, dim=32, depth=1, dim_head=16,
             heads=2, mlp_dim=32, emb_dim=64, dropout=0.1, emb_dropout=0.1,
         )
         return cls(arch=arch, dama_dim=16, num_heads=2, levels=2,
                    frame_chunk=2, compute_dtype="float32",
-                   backbone_spec=(None, V2S_MICRO))
+                   backbone_spec=(B0_MICRO, V2S_MICRO))

@@ -1,17 +1,24 @@
 """DeepfakeDetector and the eval-mode video forward (ewvit_tpu/models/detector.py).
 
-This slice ports the ``dynamic`` ablation mode: the ``dama`` subtree and the
-``classifier`` head (reference names ``classifier.{0,3}``). The B0 SFEs, the
-standalone MWT, ``fusion_gate`` (``sfe_only``/``sfe_mwt``) and train mode
-come later.
+Modules, with the reference's names (model.py:35-68):
+
+- ``dama``: DAMA (V2-S SFE + MWT + cross-attention), the ``dynamic`` mode;
+- ``mwt``: a standalone MWT, the frequency half of ``sfe_mwt``;
+- ``sfe``: a B0 EfficientViT with the feature-map head (``sfe_mwt``);
+- ``sfe_cls``: a B0 EfficientViT with the cls head (``sfe_only``);
+- ``fusion_gate``: ``Linear(2*dim, 2)``, ReLU, Dropout 0.1 (``sfe_mwt``);
+- ``classifier``: ``Linear(dim, 64)``, ReLU, Dropout 0.3, ``Linear(64, 1)``.
+
+Every mode's modules are built, so a checkpoint in the reference layout
+loads with ``strict=True``; a forward runs only its mode's modules.
 
 :func:`video_forward` is the chunk loop of the JAX ``video_forward``
 (detector.py:171-305) in eval mode: chunk = ``min(frame_chunk, K)``, the
 ragged tail chunk is zero-padded to full size and masked out of the sums,
 each chunk is flattened B-major (``[B, chunk] -> B*chunk``, so flattened row
 ``b*chunk + t`` meets positional row ``b*chunk + t`` as in the reference),
-per-frame features are summed in fp32, divided by K, and the head runs on
-the means.
+the mode's per-frame outputs (:func:`feat_dims`) are summed in fp32, divided
+by K and cast to the compute dtype, and the mode's head runs on the means.
 """
 
 from __future__ import annotations
@@ -25,9 +32,26 @@ import torch.nn as nn
 from ewvit_tpu_torch.configs import ModelConfig
 from ewvit_tpu_torch.device import DeviceLike, compute_dtype, resolve_device
 from ewvit_tpu_torch.models.dama import DAMA
+from ewvit_tpu_torch.models.mwt import MWT
 from ewvit_tpu_torch.models.norm import calibrate_batchnorm_
 from ewvit_tpu_torch.models.sfe import EfficientViT
 from ewvit_tpu_torch.ops.preprocess import preprocess_batch
+
+ABLATION_MODES = ("dynamic", "sfe_only", "sfe_mwt")
+
+
+def check_mode(mode: str) -> str:
+    if mode not in ABLATION_MODES:
+        raise ValueError(f"Invalid ablation config: {mode} (use one of {ABLATION_MODES})")
+    return mode
+
+
+def feat_dims(cfg: ModelConfig, mode: str) -> Dict[str, int]:
+    """Per-frame outputs that ``video_forward`` averages over K, by width."""
+    d = cfg.dama_dim
+    return {"dynamic": {"fused": d, "space": d, "freq": d},
+            "sfe_only": {"logits": 1},
+            "sfe_mwt": {"sfe": d, "mwt": d}}[check_mode(mode)]
 
 
 class DeepfakeDetector(nn.Module):
@@ -36,14 +60,42 @@ class DeepfakeDetector(nn.Module):
         if cfg.backbone_factory is not None:
             raise NotImplementedError("backbone_factory is a JAX-package test hook")
         self.cfg = cfg
+        d = cfg.dama_dim
         self.dama = DAMA(cfg)
+        self.mwt = MWT(cfg.in_channels, d, cfg.levels,
+                       use_pallas_dwt=cfg.use_pallas_dwt,
+                       use_fused_tail=cfg.use_fused_mwt_tail)
+        b0 = dict(feat_dim=d, use_pallas_dwse=cfg.use_pallas_dwse,
+                  pos_mode=cfg.pos_mode, backbone="b0", backbone_spec=cfg.b0_spec)
+        self.sfe = EfficientViT(cfg.arch, output_mode="feature_map", **b0)
+        self.sfe_cls = EfficientViT(cfg.arch, output_mode="cls", **b0)
+        self.fusion_gate = nn.Sequential(nn.Linear(2 * d, 2), nn.ReLU(), nn.Dropout(0.1))
         self.classifier = nn.Sequential(
-            nn.Linear(cfg.dama_dim, 64), nn.ReLU(), nn.Dropout(0.3),
-            nn.Linear(64, 1))
+            nn.Linear(d, 64), nn.ReLU(), nn.Dropout(0.3), nn.Linear(64, 1))
 
-    def forward(self, frames) -> Dict[str, torch.Tensor]:
-        """One flattened chunk ``[N, 3, H, W]`` -> per-frame dynamic features."""
-        return self.dama(frames)
+    def forward(self, frames, mode: str = "dynamic") -> Dict[str, torch.Tensor]:
+        """One flattened chunk ``[N, 3, H, W]`` -> the mode's per-frame outputs:
+        ``dynamic`` ``{'fused', 'space', 'freq'}`` ``[N, dim]``; ``sfe_only``
+        ``{'logits'}`` ``[N, 1]``; ``sfe_mwt`` ``{'sfe', 'mwt'}`` ``[N, dim]``
+        (the feature map averaged over H, W; the MWT's ``[N, dim, 1, 1]``)."""
+        if check_mode(mode) == "dynamic":
+            return self.dama(frames)
+        if mode == "sfe_only":
+            return {"logits": self.sfe_cls(frames)}
+        return {"sfe": self.sfe(frames).mean(dim=(2, 3)),
+                "mwt": self.mwt(frames).reshape(frames.shape[0], -1)}
+
+    def head(self, feats: Dict[str, torch.Tensor], mode: str = "dynamic"):
+        """Video-level head on the K-means of :meth:`forward`'s outputs."""
+        if check_mode(mode) == "dynamic":
+            return {"logits": self.classifier(feats["fused"]), **feats}
+        if mode == "sfe_only":
+            return {"logits": feats["logits"]}
+        s, m = feats["sfe"], feats["mwt"]
+        g = self.fusion_gate(torch.cat([s, m], dim=-1))
+        gate = g.float().softmax(dim=-1).to(g.dtype)
+        fused = s * gate[:, 0:1] + m * gate[:, 1:2]
+        return {"logits": self.classifier(fused), "sfe": s, "mwt": m}
 
 
 @torch.no_grad()
@@ -75,7 +127,8 @@ def build_detector(cfg: ModelConfig, *, device: DeviceLike = "cuda",
                    seed: int = 0) -> DeepfakeDetector:
     """Build the detector on ``device`` (CUDA unless the caller names the CPU)
     with seeded random weights, in eval mode. Load trained or converted
-    weights with ``load_state_dict(..., strict=True)``."""
+    weights with ``load_state_dict(..., strict=True)``, or a checkpoint file
+    with ``evaluation.load_model``."""
     dev = resolve_device(device)
     with torch.device("meta"):
         model = DeepfakeDetector(cfg)
@@ -88,12 +141,14 @@ def random_detector(cfg: ModelConfig, *, device: DeviceLike = "cuda", seed: int 
                     calib_frames: int = 16) -> DeepfakeDetector:
     """Seeded random weights that keep a full-depth forward well scaled.
 
-    With identity BatchNorm statistics the activations of the V2-S stack
-    vanish and every request gets the same answer; so the backbone's BNs are
+    With identity BatchNorm statistics the activations of a deep backbone
+    stack vanish and every request gets the same answer; so the BNs of the
+    three backbones (DAMA's V2-S, the B0s of ``sfe`` and ``sfe_cls``) are
     calibrated on ``calib_frames`` seeded random uint8 frames (one train-mode
-    pass, fp32), and the classifier's output layer is scaled by 0.1 so the
-    logits stay O(1) and the probabilities unsaturated. Smoke tests and
-    profiling use this; served weights come from ``load_state_dict``.
+    pass each, fp32), and the output layers of the two logit heads
+    (``classifier``, ``sfe_cls``'s cls head) are scaled by 0.1 so the logits
+    stay O(1) and the probabilities unsaturated. Smoke tests and profiling
+    use this; served weights come from ``load_state_dict``.
     """
     model = build_detector(cfg, device=device, seed=seed)
     dev = next(model.parameters()).device
@@ -101,33 +156,34 @@ def random_detector(cfg: ModelConfig, *, device: DeviceLike = "cuda", seed: int 
     s = cfg.arch.image_size
     clips = torch.randint(0, 256, (1, calib_frames, s, s, cfg.in_channels),
                           generator=g, device=dev, dtype=torch.uint8)
-    calibrate_batchnorm_(model.dama.sfe.efficient_net,
-                         preprocess_batch(clips, torch.float32)[0])
+    frames = preprocess_batch(clips, torch.float32)[0]
+    for sfe in (model.dama.sfe, model.sfe, model.sfe_cls):
+        calibrate_batchnorm_(sfe.efficient_net, frames)
     model.classifier[3].weight.mul_(0.1)
+    model.sfe_cls.mlp_head[2].weight.mul_(0.1)
     return model
 
 
 @torch.no_grad()
-def video_forward(model: DeepfakeDetector, x: torch.Tensor, *,
+def video_forward(model: DeepfakeDetector, x: torch.Tensor, *, mode: str = "dynamic",
                   frame_chunk: int = 8) -> Dict[str, torch.Tensor]:
-    """``dynamic``-mode forward: ``x`` ``[B, K, 3, H, W]`` preprocessed frames
-    -> ``{'logits': [B, 1], 'fused', 'space', 'freq': [B, dim]}``."""
+    """``x`` ``[B, K, 3, H, W]`` preprocessed frames -> the mode's head
+    outputs: ``{'logits': [B, 1]}`` plus ``'fused', 'space', 'freq'``
+    (``dynamic``) or ``'sfe', 'mwt'`` (``sfe_mwt``), each ``[B, dim]``."""
     if model.training:
         raise NotImplementedError("train-mode video_forward is not ported yet")
     b, k = x.shape[:2]
     chunk = min(frame_chunk, k)
-    d = model.cfg.dama_dim
     sums = {key: torch.zeros(b, d, dtype=torch.float32, device=x.device)
-            for key in ("fused", "space", "freq")}
+            for key, d in feat_dims(model.cfg, mode).items()}
     for start in range(0, k, chunk):
         fr = x[:, start:start + chunk]
         valid = fr.shape[1]
         if valid < chunk:
             pad = fr.new_zeros((b, chunk - valid) + tuple(x.shape[2:]))
             fr = torch.cat([fr, pad], dim=1)
-        out = model(fr.reshape(b * chunk, *x.shape[2:]))
+        out = model(fr.reshape(b * chunk, *x.shape[2:]), mode)
         for key in sums:
             sums[key] += out[key].float().reshape(b, chunk, -1)[:, :valid].sum(dim=1)
     dt = compute_dtype(model.cfg.compute_dtype)
-    means = {key: (v / k).to(dt) for key, v in sums.items()}
-    return {"logits": model.classifier(means["fused"]), **means}
+    return model.head({key: (v / k).to(dt) for key, v in sums.items()}, mode)

@@ -25,10 +25,16 @@ def version_key(*tensors: torch.Tensor) -> tuple:
 
 
 class KeepsWeights(nn.Module):
-    """A module that keeps weights for a kernel: :meth:`drop_kept_weights`
-    clears them, and ``train()`` and ``_load_from_state_dict`` call it."""
+    """A module that keeps weights for a kernel: :meth:`kept_weights` computes
+    or looks them up, :meth:`drop_kept_weights` clears them, and ``train()``
+    and ``_load_from_state_dict`` call it."""
 
     def drop_kept_weights(self) -> None:
+        raise NotImplementedError
+
+    def kept_weights(self, dtype: torch.dtype):
+        """What the module keeps for a forward in ``dtype`` (folded now if it
+        is not kept yet), or ``None`` if its forward runs no such kernel."""
         raise NotImplementedError
 
     def train(self, mode: bool = True):

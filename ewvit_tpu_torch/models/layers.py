@@ -147,6 +147,9 @@ class BidirectionalCrossTransformer(KeepsWeights):
     def drop_kept_weights(self) -> None:
         self._xattn = None
 
+    def kept_weights(self, dtype: torch.dtype):
+        return self._xattn_weights() if self.fuses() else None
+
     def fuses(self, tokens: int = 1) -> bool:
         """Whether a forward over ``tokens`` tokens per branch runs K4."""
         return (self.use_fused and self.inner == self.dim

@@ -88,6 +88,9 @@ class MWT(KeepsWeights):
     def drop_kept_weights(self) -> None:
         self._tail = None
 
+    def kept_weights(self, dtype: torch.dtype):
+        return self._tail_weights(dtype) if self.use_fused_tail else None
+
     def _hf_sep(self, hf):
         """The three shared hf_sep stacks on their channel slices, as one
         grouped conv followed by each stack's eval BN and ReLU."""

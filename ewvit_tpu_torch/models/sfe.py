@@ -1,8 +1,10 @@
-"""SFE: EfficientViT spatial feature extractor, V2-S flavour (ewvit_tpu/models/sfe.py).
+"""SFE: EfficientViT spatial feature extractor (ewvit_tpu/models/sfe.py).
 
-Backbone -> patchify -> linear embed -> prepend CLS -> add the batch-indexed
-positional embedding -> ViT -> head. Both heads are built (the reference's
-checkpoints carry both); only the requested one runs.
+Backbone (``"b0"``: EfficientNet-B0, the ``sfe``/``sfe_cls`` branches;
+``"v2s"``: EfficientNetV2-S, DAMA's SFE; its stack from ``backbone_spec``,
+the full one by default) -> patchify -> linear embed -> prepend CLS -> add
+the batch-indexed positional embedding -> ViT -> head. Both heads are built
+(the reference's checkpoints carry both); only the requested one runs.
 
 Patchify flattens each patch in NHWC order ``(p1, p2, c)``, the reference's
 ``rearrange('b c (h p1) (w p2) -> b (h w) (p1 p2 c)')``: the NCHW map is
@@ -18,11 +20,13 @@ row ``pos_embedding[0]``.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn as nn
 
-from ewvit_tpu_torch.configs import V2S_FULL, ArchConfig, BackboneSpec
-from ewvit_tpu_torch.models.efficientnet import EfficientNetV2S
+from ewvit_tpu_torch.configs import B0_FULL, V2S_FULL, ArchConfig, BackboneSpec
+from ewvit_tpu_torch.models.efficientnet import EfficientNetB0, EfficientNetV2S
 from ewvit_tpu_torch.models.layers import Transformer
 
 
@@ -32,14 +36,19 @@ class EfficientViT(nn.Module):
 
     def __init__(self, arch: ArchConfig, feat_dim: int = 128,
                  output_mode: str = "feature_map", use_pallas_dwse: bool = False,
-                 pos_mode: str = "reference", backbone_spec: BackboneSpec = V2S_FULL):
+                 pos_mode: str = "reference", backbone: str = "v2s",
+                 backbone_spec: Optional[BackboneSpec] = None):
         super().__init__()
         if pos_mode not in ("reference", "tile", "row0"):
             raise ValueError(f"unknown pos_mode {pos_mode!r}")
+        nets = {"b0": (EfficientNetB0, B0_FULL), "v2s": (EfficientNetV2S, V2S_FULL)}
+        if backbone not in nets:
+            raise ValueError(f"unknown backbone {backbone!r} (use 'b0' or 'v2s')")
+        net, backbone_spec = nets[backbone][0], backbone_spec or nets[backbone][1]
         a = arch
         self.arch, self.feat_dim = a, feat_dim
         self.output_mode, self.pos_mode = output_mode, pos_mode
-        self.efficient_net = EfficientNetV2S(backbone_spec, use_pallas_dwse)
+        self.efficient_net = net(backbone_spec, use_pallas_dwse)
         patch_dim = a.patch_size * a.patch_size * backbone_spec.head_ch
         self.pos_embedding = nn.Parameter(torch.empty(a.emb_dim, 1, a.dim))
         self.patch_to_embedding = nn.Linear(patch_dim, a.dim)

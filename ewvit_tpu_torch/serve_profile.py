@@ -1,18 +1,19 @@
 """Where a served request's time goes on the GPU.
 
     python3 -m ewvit_tpu_torch.serve_profile [--requests 3] [--trace PATH]
-                                             [--fused-mwt-tail]
+                                             [--fused-mwt-tail] [--mode MODE]
 
-Builds the full-width dynamic detector (``ModelConfig()`` with the three
-kernel flags on, bf16; ``--fused-mwt-tail`` adds ``use_fused_mwt_tail``, so
-the MWT's multiscale_fusion runs as K3) with seeded, BN-calibrated random
-weights
-(``random_detector``), serves ``[2, 40, 224, 224, 3]`` uint8 requests and
-prints:
+Builds the full-width detector (``ModelConfig()`` with the three kernel
+flags on, bf16; ``--fused-mwt-tail`` adds ``use_fused_mwt_tail``, so the
+MWT's multiscale_fusion runs as K3) with seeded, BN-calibrated random
+weights (``random_detector``), serves ``[2, 40, 224, 224, 3]`` uint8
+requests in ``--mode`` (``dynamic`` by default, ``sfe_only``, ``sfe_mwt``)
+and prints:
 
 - wall ms per request (host clock around ``predict``, which ends in a sync);
-- per component of one 64-frame chunk, device ms from CUDA events: V2-S
-  backbone, the rest of the SFE, MWT, cross-attention, gates;
+- in ``dynamic`` mode, per component of one 64-frame chunk, device ms from
+  CUDA events: V2-S backbone, the rest of the SFE, MWT, cross-attention,
+  gates;
 - from ``torch.profiler`` over ``--requests`` requests: device busy ms (sum
   of kernel time on the one stream), the idle share of the wall time, and the
   top kernels by device time.
@@ -30,7 +31,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from ewvit_tpu_torch.configs import ModelConfig
-from ewvit_tpu_torch.models.detector import random_detector
+from ewvit_tpu_torch.models.detector import ABLATION_MODES, random_detector
 from ewvit_tpu_torch.ops.preprocess import preprocess_batch
 from ewvit_tpu_torch.serving import InferenceEngine
 
@@ -86,6 +87,7 @@ def main() -> None:
     ap.add_argument("--trace", default=None, help="write a Chrome trace here")
     ap.add_argument("--fused-mwt-tail", action="store_true",
                     help="serve with use_fused_mwt_tail (K3) on")
+    ap.add_argument("--mode", default="dynamic", choices=ABLATION_MODES)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("serve_profile needs a CUDA GPU")
@@ -94,13 +96,13 @@ def main() -> None:
                                 use_pallas_dama=True,
                                 use_fused_mwt_tail=args.fused_mwt_tail)
     engine = InferenceEngine(random_detector(cfg, device="cuda", seed=0),
-                             frame_chunk=32, device="cuda")
+                             mode=args.mode, frame_chunk=32, device="cuda")
     rng = np.random.default_rng(0)
     reqs = [rng.integers(0, 256, (2, 40, 224, 224, 3), dtype=np.uint8)
             for _ in range(args.requests)]
     engine.warmup(2, 40)
-    print(f"[profile] {torch.cuda.get_device_name(0)}; use_fused_mwt_tail="
-          f"{cfg.use_fused_mwt_tail}")
+    print(f"[profile] {torch.cuda.get_device_name(0)}; mode={args.mode}, "
+          f"use_fused_mwt_tail={cfg.use_fused_mwt_tail}")
 
     lat = []
     for clips in reqs:
@@ -108,8 +110,9 @@ def main() -> None:
         engine.predict(clips)
         lat.append((time.perf_counter() - t) * 1e3)
     print(f"[profile] wall ms per request: {[round(v, 3) for v in lat]}")
-    print(f"[profile] device ms per chunk component: "
-          f"{ {k: round(v, 3) for k, v in components(engine, reqs[0]).items()} }")
+    if args.mode == "dynamic":
+        print(f"[profile] device ms per chunk component: "
+              f"{ {k: round(v, 3) for k, v in components(engine, reqs[0]).items()} }")
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:

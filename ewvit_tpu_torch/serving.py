@@ -7,55 +7,64 @@
   fp32 parameters and fold them per call, except where a kernel keeps its
   folded weights: K3's U, K2's depthwise weights, K4's packed weights), as
   ewvit_tpu's ``cast_kernels_for_inference`` pre-casts kernels;
-- runs the eval ``video_forward`` (``dynamic`` mode, the one ported);
+- runs the eval ``video_forward`` in the engine's ablation ``mode``
+  (``dynamic``, ``sfe_only`` or ``sfe_mwt``);
 - ``predict_stream`` enqueues batch N+1 before it waits for batch N, whose
   probabilities were queued for a device-to-host copy right after its
-  forward, so host transfer and compute overlap.
+  forward, so host transfer and compute overlap;
+- ``from_checkpoint`` builds the engine from a ``.pth``/``.pt`` file in the
+  reference layout (``evaluation.load_model``).
 
 Data-parallel serving (``mesh=``) waits.
 """
 
 from __future__ import annotations
 
-from typing import Iterable, Iterator
+from typing import Iterable, Iterator, Optional
 
 import numpy as np
 import torch
 import torch.nn as nn
 
+from ewvit_tpu_torch.configs import ModelConfig
 from ewvit_tpu_torch.device import DeviceLike, compute_dtype, resolve_device
-from ewvit_tpu_torch.models.detector import DeepfakeDetector, video_forward
-from ewvit_tpu_torch.models.efficientnet import MBConv
-from ewvit_tpu_torch.models.layers import BidirectionalCrossTransformer
-from ewvit_tpu_torch.models.mwt import MWT
+from ewvit_tpu_torch.models.detector import DeepfakeDetector, check_mode, video_forward
+from ewvit_tpu_torch.models.kept import KeepsWeights
 from ewvit_tpu_torch.ops.preprocess import preprocess_batch
 
 
 def cast_for_inference(model: nn.Module, dtype: torch.dtype) -> nn.Module:
     """Cast conv and linear weights and biases to ``dtype`` in place, then
-    fold and pack the fused MWT tail's U, K2's depthwise weights and K4's
-    weights once (eval mode)."""
+    fold and pack once (eval mode) what every kernel-running module keeps:
+    K2's depthwise weights in the V2-S and B0 blocks, the fused MWT tail's U
+    in both MWTs, K4's weights."""
     for m in model.modules():
         if isinstance(m, (nn.Conv2d, nn.Linear)):
             m.to(dtype)
     if not model.training:
         for m in model.modules():
-            if isinstance(m, MWT) and m.use_fused_tail:
-                m._tail_weights(dtype)
-            elif isinstance(m, MBConv) and m.fuse_dwse:
-                m._dwse_weights()
-            elif isinstance(m, BidirectionalCrossTransformer) and m.fuses():
-                m._xattn_weights()
+            if isinstance(m, KeepsWeights):
+                m.kept_weights(dtype)
     return model
 
 
 class InferenceEngine:
-    def __init__(self, model: DeepfakeDetector, *, frame_chunk: int = 32,
-                 device: DeviceLike = "cuda"):
+    def __init__(self, model: DeepfakeDetector, *, mode: str = "dynamic",
+                 frame_chunk: int = 32, device: DeviceLike = "cuda"):
+        self.mode = check_mode(mode)
         self.device = resolve_device(device)
         self.dtype = compute_dtype(model.cfg.compute_dtype)
         self.model = cast_for_inference(model.to(self.device).eval(), self.dtype)
         self.frame_chunk = frame_chunk
+
+    @classmethod
+    def from_checkpoint(cls, path: str, cfg: Optional[ModelConfig] = None, *,
+                        device: DeviceLike = "cuda", **kw) -> "InferenceEngine":
+        """Engine over the weights of a ``.pth``/``.pt`` checkpoint
+        (``evaluation.load_model``); ``kw`` go to the constructor."""
+        from ewvit_tpu_torch.evaluation import load_model   # evaluation imports this module
+
+        return cls(load_model(path, cfg, device=device), device=device, **kw)
 
     def _place(self, clips_u8: np.ndarray) -> torch.Tensor:
         host = torch.from_numpy(np.ascontiguousarray(clips_u8))
@@ -69,7 +78,8 @@ class InferenceEngine:
     def _forward(self, clips: torch.Tensor) -> torch.Tensor:
         x = preprocess_batch(clips, self.dtype)
         k = clips.shape[1]
-        out = video_forward(self.model, x, frame_chunk=min(self.frame_chunk, k))
+        out = video_forward(self.model, x, mode=self.mode,
+                            frame_chunk=min(self.frame_chunk, k))
         return torch.sigmoid(out["logits"].float())[:, 0]
 
     def _dispatch(self, clips_u8: np.ndarray):

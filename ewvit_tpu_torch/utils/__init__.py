@@ -1,1 +1,1 @@
-"""Weight conversion from the JAX package's variables."""
+"""Weight conversion from the JAX package's variables; the metric suite."""

@@ -3,9 +3,11 @@
 Input: the JAX package's DeepfakeDetector variables as numpy trees
 ``{'params': ..., 'batch_stats': ...}`` (e.g. ``jax.tree_util.tree_map(
 np.asarray, variables)``). Output: a ``{name: torch.Tensor}`` dict for the
-port's ``DeepfakeDetector`` (the ``dama`` subtree and ``classifier``), which
-loads with ``strict=True``. Own copy of the name mapping of
-ewvit_tpu/utils/torch_convert.py:130-296, restricted to what the port holds.
+port's whole ``DeepfakeDetector`` (``dama``, ``mwt``, ``sfe``, ``sfe_cls``,
+``fusion_gate``, ``classifier``), which loads with ``strict=True``. Own copy
+of the name mapping of ewvit_tpu/utils/torch_convert.py:130-296; the
+backbone stacks follow ``ModelConfig.b0_spec``/``v2s_spec``, so truncated
+(micro) configs convert too.
 
 Layout transforms: Linear kernel ``[in, out]`` -> weight ``[out, in]``; Conv
 HWIO -> OIHW (depthwise too); BatchNorm ``scale/bias`` + ``mean/var`` ->
@@ -102,8 +104,32 @@ def _v2s(b: _Builder, t: str, f: Path, cfg: ModelConfig):
     b.conv_bn(f"{t}.features.{len(blocks) + 1}", n + ("head",))
 
 
-def _efficientvit(b: _Builder, t: str, f: Path, cfg: ModelConfig):
-    _v2s(b, f"{t}.efficient_net", f + ("efficient_net",), cfg)
+def _b0(b: _Builder, t: str, f: Path, cfg: ModelConfig):
+    """efficientnet_pytorch names; ``_blocks.{i}`` runs flat across stages."""
+    n = f + ("net",)
+    b.conv(f"{t}._conv_stem", n + ("stem", "conv"))
+    b.bn(f"{t}._bn0", n + ("stem", "bn"))
+    idx = 0
+    for si, bc in enumerate(cfg.b0_spec.blocks):
+        for r in range(bc.repeats):
+            blk, fb = f"{t}._blocks.{idx}", n + (f"block_{si}_{r}",)
+            if bc.expand != 1:
+                b.conv(f"{blk}._expand_conv", fb + ("expand_conv", "conv"))
+                b.bn(f"{blk}._bn0", fb + ("expand_conv", "bn"))
+            b.conv(f"{blk}._depthwise_conv", fb + ("depthwise", "conv"))
+            b.bn(f"{blk}._bn1", fb + ("depthwise", "bn"))
+            b.conv(f"{blk}._se_reduce", fb + ("se", "reduce"), bias=True)
+            b.conv(f"{blk}._se_expand", fb + ("se", "expand"), bias=True)
+            b.conv(f"{blk}._project_conv", fb + ("project", "conv"))
+            b.bn(f"{blk}._bn2", fb + ("project", "bn"))
+            idx += 1
+    b.conv(f"{t}._conv_head", n + ("head", "conv"))
+    b.bn(f"{t}._bn1", n + ("head", "bn"))
+
+
+def _efficientvit(b: _Builder, t: str, f: Path, cfg: ModelConfig, backbone: str):
+    net = {"b0": _b0, "v2s": _v2s}[backbone]
+    net(b, f"{t}.efficient_net", f + ("efficient_net",), cfg)
     b.raw(f"{t}.pos_embedding", f + ("pos_embedding",))
     b.raw(f"{t}.cls_token", f + ("cls_token",))
     b.linear(f"{t}.patch_to_embedding", f + ("patch_to_embedding",))
@@ -149,13 +175,17 @@ def _cross(b: _Builder, t: str, f: Path, depth: int = 2):
 def jax_to_state_dict(variables: Mapping, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
     """JAX DeepfakeDetector variables (numpy trees) -> port ``state_dict``."""
     b = _Builder(variables)
-    _efficientvit(b, "dama.sfe", ("dama", "sfe"), cfg)
+    _efficientvit(b, "dama.sfe", ("dama", "sfe"), cfg, "v2s")
     _mwt(b, "dama.mwt", ("dama", "mwt"))
     _cross(b, "dama.cross_att", ("dama", "cross_att"))
     b.conv("dama.fusion_gate.0", ("dama", "fusion_gate_conv"), bias=True)
     b.bn("dama.fusion_gate.1", ("dama", "fusion_gate_bn"))
     b.linear("dama.gate_net.2", ("dama", "gate_fc1"))
     b.linear("dama.gate_net.5", ("dama", "gate_fc2"))
+    _mwt(b, "mwt", ("mwt",))
+    _efficientvit(b, "sfe", ("sfe",), cfg, "b0")
+    _efficientvit(b, "sfe_cls", ("sfe_cls",), cfg, "b0")
+    b.linear("fusion_gate.0", ("fusion_gate_fc",))
     b.linear("classifier.0", ("classifier_fc1",))
     b.linear("classifier.3", ("classifier_fc2",))
     return b.sd

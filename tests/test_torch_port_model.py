@@ -43,7 +43,7 @@ JCFG = JaxConfig.micro().replace(
         je.V2S_MICRO.blocks + (je.BlockCfg(**SE_S1),), stem_ch=8, head_ch=32)),
     **FLAGS)
 PCFG = pc.ModelConfig.micro().replace(
-    backbone_spec=(None, pc.BackboneSpec(
+    backbone_spec=(pc.B0_MICRO, pc.BackboneSpec(
         pc.V2S_MICRO.blocks + (pc.BlockCfg(**SE_S1),), stem_ch=8, head_ch=32)),
     use_pallas_dwt=True, **FLAGS)
 
