@@ -68,7 +68,8 @@ import torch.nn.functional as F
 from ewvit_tpu_torch import InferenceEngine, ModelConfig, build_detector, video_forward
 from ewvit_tpu_torch.configs import B0_BLOCKS
 from ewvit_tpu_torch.device import resolve_device
-from ewvit_tpu_torch.evaluation import evaluate, load_model
+from ewvit_tpu_torch.checkpoint import load_model
+from ewvit_tpu_torch.evaluation import evaluate
 from ewvit_tpu_torch.models.detector import random_detector
 from ewvit_tpu_torch.models.kept import KeepsWeights
 from ewvit_tpu_torch.ops import extension

@@ -1,13 +1,8 @@
 """Evaluation: checkpoint loading, the eval step and a dataset pass
 (ewvit_tpu/evaluation.py, ewvit_tpu/train/steps.py:158-186).
 
-- :func:`load_model` builds the detector and loads a ``.pth``/``.pt``
-  checkpoint in the reference layout: a raw state dict or one under
-  ``model_state_dict`` or ``state_dict``, with or without DataParallel's
-  ``module.`` prefixes. The port's module names are the reference's, so no
-  conversion runs. Orbax checkpoint directories stay with the JAX package:
-  restore one there and convert its variables with
-  ``ewvit_tpu_torch.utils.convert.jax_to_state_dict``.
+- :func:`load_model` (from ``checkpoint.py``) builds the detector and loads
+  a ``.pth``/``.pt`` checkpoint in the reference layout.
 - :func:`eval_step`: forward, ``combined_loss`` with pos-weighted BCE, and
   sigmoid predictions, without gradients.
 - :func:`evaluate` runs :func:`eval_step` over any iterable of
@@ -22,82 +17,18 @@ The dataset loaders (``get_dataloader``) arrive with the data pipeline.
 from __future__ import annotations
 
 import functools
-import os
-from typing import Dict, Mapping, Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
-from ewvit_tpu_torch.configs import ModelConfig
+from ewvit_tpu_torch.checkpoint import load_model  # noqa: F401  (re-exported)
 from ewvit_tpu_torch.device import DeviceLike, compute_dtype, resolve_device
-from ewvit_tpu_torch.models.detector import (
-    DeepfakeDetector,
-    build_detector,
-    check_mode,
-    video_forward,
-)
+from ewvit_tpu_torch.models.detector import DeepfakeDetector, check_mode, video_forward
 from ewvit_tpu_torch.ops.preprocess import preprocess_batch
 from ewvit_tpu_torch.serving import cast_for_inference
 from ewvit_tpu_torch.train.losses import combined_loss, weighted_bce_with_logits
 from ewvit_tpu_torch.utils.metrics import binary_metrics
-
-
-def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
-    """A reference ``.pth`` as a flat ``{name: tensor}`` dict on the CPU, from
-    any of its three layouts, with ``module.`` prefixes stripped
-    (ewvit_tpu/utils/torch_convert.py:36-55). Loads tensors only
-    (``weights_only=True``)."""
-    obj = torch.load(path, map_location="cpu", weights_only=True)
-    if isinstance(obj, Mapping):
-        for key in ("model_state_dict", "state_dict"):
-            if key in obj:
-                obj = obj[key]
-                break
-    return {(k[len("module."):] if k.startswith("module.") else k): v
-            for k, v in obj.items() if isinstance(v, torch.Tensor)}
-
-
-def _check_checkpoint(path: str, sd: Mapping[str, torch.Tensor],
-                      model: DeepfakeDetector) -> None:
-    """Raise on missing keys or shape mismatches; warn on unexpected keys."""
-    cfg, own = model.cfg, model.state_dict()
-    needed = [k for k in own if not k.endswith("num_batches_tracked")]
-    missing = [k for k in needed if k not in sd]
-    if missing:
-        raise ValueError(
-            f"{path}: {len(missing)} keys of the DeepfakeDetector are absent "
-            f"(first few: {missing[:5]}) — not a DeepfakeDetector checkpoint?")
-    unexpected = sorted(set(sd) - set(own))
-    if unexpected:
-        print(f"Warning: {path}: {len(unexpected)} unexpected keys ignored "
-              f"(e.g. {unexpected[:3]})")
-    for k in needed:
-        if tuple(sd[k].shape) != tuple(own[k].shape):
-            raise ValueError(
-                f"{path}: {k} has shape {tuple(sd[k].shape)} but the configured "
-                f"model (dama_dim={cfg.dama_dim}, image_size={cfg.arch.image_size}) "
-                f"expects {tuple(own[k].shape)} — check the dim and image size "
-                "against the checkpoint's training config")
-
-
-def load_model(path: Optional[str], cfg: Optional[ModelConfig] = None, *,
-               device: DeviceLike = "cuda") -> DeepfakeDetector:
-    """The detector on ``device`` (CUDA unless the caller names the CPU), in
-    eval mode, with the weights of the ``.pth``/``.pt`` file at ``path``
-    (seeded random weights when ``path`` is None)."""
-    model = build_detector(cfg or ModelConfig(), device=device)
-    if path is None:
-        return model
-    if os.path.isdir(path) or not str(path).endswith((".pth", ".pt")):
-        raise ValueError(
-            f"{path}: not a torch checkpoint (.pth/.pt). Orbax checkpoint "
-            "directories belong to the JAX package: restore the variables there "
-            "and convert them with ewvit_tpu_torch.utils.convert.jax_to_state_dict")
-    sd = load_torch_state_dict(path)
-    _check_checkpoint(path, sd, model)
-    own = model.state_dict()
-    model.load_state_dict({k: sd.get(k, own[k]) for k in own}, strict=True)
-    return model
 
 
 @torch.no_grad()
@@ -118,16 +49,14 @@ def eval_step(model: DeepfakeDetector, frames: torch.Tensor, labels: torch.Tenso
 
 
 def evaluate(model: DeepfakeDetector, loader, *, mode: str = "dynamic",
-             frame_chunk: int = 8, device: DeviceLike = "cuda",
-             collect_outputs: bool = True) -> Dict:
+             frame_chunk: int = 8, device: DeviceLike = "cuda") -> Dict:
     """Metrics of ``model`` over ``loader``'s ``(clips, labels)`` batches.
 
     The model is moved to ``device`` and cast to its compute dtype for
     inference in place (``serving.cast_for_inference``). The dataset loss is
     the mean of the per-row losses: each batch's loss is weighted by its
     true size. ``orth_loss`` is the mean over batches and ``orth_losses``
-    the per-batch series; ``preds`` and ``labels`` come back with
-    ``collect_outputs``.
+    the per-batch series; ``preds`` and ``labels`` are the true rows'.
     """
     check_mode(mode)
     dev = resolve_device(device)
@@ -159,8 +88,7 @@ def evaluate(model: DeepfakeDetector, loader, *, mode: str = "dynamic",
     results = binary_metrics(labels, preds, loss=loss_sum / n_total if n_total else None)
     results["orth_loss"] = float(np.mean(orth_losses)) if orth_losses else 0.0
     results["orth_losses"] = orth_losses
-    if collect_outputs:
-        results["preds"], results["labels"] = preds, labels
+    results["preds"], results["labels"] = preds, labels
     return results
 
 

@@ -128,7 +128,7 @@ def build_detector(cfg: ModelConfig, *, device: DeviceLike = "cuda",
     """Build the detector on ``device`` (CUDA unless the caller names the CPU)
     with seeded random weights, in eval mode. Load trained or converted
     weights with ``load_state_dict(..., strict=True)``, or a checkpoint file
-    with ``evaluation.load_model``."""
+    with ``checkpoint.load_model``."""
     dev = resolve_device(device)
     with torch.device("meta"):
         model = DeepfakeDetector(cfg)

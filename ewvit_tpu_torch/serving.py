@@ -13,7 +13,7 @@
   probabilities were queued for a device-to-host copy right after its
   forward, so host transfer and compute overlap;
 - ``from_checkpoint`` builds the engine from a ``.pth``/``.pt`` file in the
-  reference layout (``evaluation.load_model``).
+  reference layout (``checkpoint.load_model``).
 
 Data-parallel serving (``mesh=``) waits.
 """
@@ -26,6 +26,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from ewvit_tpu_torch.checkpoint import load_model
 from ewvit_tpu_torch.configs import ModelConfig
 from ewvit_tpu_torch.device import DeviceLike, compute_dtype, resolve_device
 from ewvit_tpu_torch.models.detector import DeepfakeDetector, check_mode, video_forward
@@ -61,9 +62,7 @@ class InferenceEngine:
     def from_checkpoint(cls, path: str, cfg: Optional[ModelConfig] = None, *,
                         device: DeviceLike = "cuda", **kw) -> "InferenceEngine":
         """Engine over the weights of a ``.pth``/``.pt`` checkpoint
-        (``evaluation.load_model``); ``kw`` go to the constructor."""
-        from ewvit_tpu_torch.evaluation import load_model   # evaluation imports this module
-
+        (``checkpoint.load_model``); ``kw`` go to the constructor."""
         return cls(load_model(path, cfg, device=device), device=device, **kw)
 
     def _place(self, clips_u8: np.ndarray) -> torch.Tensor:

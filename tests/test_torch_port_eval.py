@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from ewvit_tpu.configs import ModelConfig as JaxConfig
+from ewvit_tpu.evaluation import evaluate as jax_evaluate
 from ewvit_tpu.models.detector import init_detector_fast
 from ewvit_tpu.train import losses as jl
 from ewvit_tpu.train.steps import eval_step as jax_eval_step
@@ -246,12 +247,19 @@ class DatasetLoader:
 
 @pytest.mark.parametrize("loader", [PaddedLoader, DatasetLoader])
 def test_evaluate_keeps_pad_rows_out(micro_pair, loader, capsys):
-    _, _, port = micro_pair
+    jmodel, jvars, port = micro_pair
     g = np.random.default_rng(25)
     clips = g.integers(0, 256, (7, 2, 32, 32, 3), np.uint8)
     labels = np.array([1, 0, 0, 1, 1, 0, 1])
     got = evaluate(port, loader(clips, labels), frame_chunk=2, device="cpu")
     assert len(got["preds"]) == len(got["labels"]) == 7 and got["labels"] == labels.tolist()
+    # the JAX evaluate on the same padded loader and the same weights
+    ref = jax_evaluate(jmodel, jvars, loader(clips, labels), compute_dtype="float32",
+                       frame_chunk=2)
+    assert set(got) == set(ref) and got["labels"] == ref["labels"]
+    assert got["confusion_matrix"] == ref["confusion_matrix"]
+    for k in set(ref) - {"confusion_matrix", "labels"}:
+        _close(got[k], ref[k], 1e-4, k)
     # the true rows alone, batch by batch, with eval_step and the metrics
     preds, loss_sum, orth = [], 0.0, []
     for i in range(0, 7, 3):
