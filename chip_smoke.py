@@ -44,7 +44,24 @@ Phases (any failure raises and the exit code is nonzero):
               runs evaluation.evaluate on labelled in-memory batches with a
               padded tail in each mode (finite metrics; predictions equal
               the served probabilities);
-6. report  -- one JSON line describing every kernel, then the final line
+6. train   -- the train step at full width (train/steps.py: bf16 autocast,
+              fp32 parameters and Adam, accum_steps 2, frame_chunk 32 so
+              chunks of 64 rows and a true tail of 16, per-chunk remat,
+              train preprocessing with colour jitter): 8 dynamic steps on
+              one batch of uint8 clips [4, 40, 224, 224, 3] with all four
+              kernel flags on, timed by CUDA events, one more under
+              torch.profiler (the loss falls; the 18 frozen tensors stay
+              bit for bit; every other tensor with a nonzero value or
+              gradient moves; DAMA's BN running statistics move; K2, K3 and
+              K4 launch 0 times and nothing is folded or packed; K1
+              launches the derived count per step), then in fp32 on one
+              clip of 10 frames (frame_chunk 4, tail 2) one step with K1
+              on and off and one with remat on and off (loss 1e-5, each
+              gradient 1e-4 of its tensor's max abs, running statistics
+              1e-5), the eval-mode forward with grad enabled that must
+              raise, 2 steps each of sfe_mwt and sfe_only, and the step
+              time, frames trained per second and peak memory;
+7. report  -- one JSON line describing every kernel, then the final line
               {"ok": true, "device": {...}}.
 
 Without a CUDA device, or run outside the repository, it exits nonzero and
@@ -98,6 +115,8 @@ from ewvit_tpu_torch.ops.mwt_tail import (
     pack_tail,
 )
 from ewvit_tpu_torch.ops.preprocess import preprocess_batch
+from ewvit_tpu_torch.train.optimizer import detector_frozen_names, make_optimizer
+from ewvit_tpu_torch.train.steps import train_step
 from ewvit_tpu_torch.ops.winograd import (
     conv3x3_winograd,
     conv3x3_winograd_packed,
@@ -845,6 +864,262 @@ def phase_checkpoint(requests, state, served):
             torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------------ train
+
+TRAIN_FLAGS = dict(use_pallas_dwt=True, use_pallas_dwse=True, use_pallas_dama=True,
+                   use_fused_mwt_tail=True)
+# launched by no train step: K2, K3 and K4 are inference-only, as in the JAX
+# package, and a train forward reads no kept weights
+NOT_IN_TRAIN = ("dw_bn_silu_mean", "fused_multiscale_winograd",
+                "fused_bidirectional_cross_attention",
+                "fused_bidirectional_cross_attention_general",
+                "dw_se_fold", "winograd_u_fold", "xattn_pack")
+TRAIN_LR = 1e-4       # the reference's lr (make_optimizer's default)
+
+
+def k1_per_step(cfg, mode, frames, accum, frame_chunk, remat=True):
+    """K1 launches in one train step: one per MWT level per chunk per
+    micro-batch in the forward, and again in each chunk's remat recompute
+    (the whole chunk is recomputed: its last saved tensors are at its end)."""
+    if mode == "sfe_only" or not cfg.use_pallas_dwt:
+        return 0
+    chunks = -(-frames // min(frame_chunk, frames))
+    return cfg.levels * chunks * accum * (2 if remat else 1)
+
+
+def train_model(cfg, state):
+    model = build_detector(cfg, device="cuda")
+    model.load_state_dict(state, strict=True)
+    return model.train()
+
+
+def train_steps(model, clips, labels, *, mode, steps, accum, frame_chunk, remat=True,
+                timed_from=None, seed=0):
+    """``steps`` train steps of ``model`` on one batch: the uint8 ``clips``
+    preprocessed once in train mode (jitter from a generator seeded by
+    ``seed``), the same dropout seed every step, so each step descends one
+    fixed objective. Returns the losses, per-step device ms of the steps
+    from ``timed_from`` on (CUDA events around ``train_step``), the launch
+    counts of all steps, the parameters and statistics it started from,
+    which parameters ever had a nonzero gradient, the optimizer and a
+    function that runs one more step."""
+    dt = torch.float32 if model.cfg.compute_dtype == "float32" else torch.bfloat16
+    opt = make_optimizer(model, lr=TRAIN_LR, epochs=3, steps_per_epoch=4)
+    start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    params = [p for g in opt.param_groups for p in g["params"]]
+    ever = torch.zeros(len(params), dtype=torch.bool, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    frames = preprocess_batch(torch.from_numpy(clips).to("cuda"), dt, train=True,
+                              generator=gen)
+    y = torch.from_numpy(labels).to("cuda")
+
+    def step():
+        return train_step(model, opt, frames, y, seed=seed, mode=mode,
+                          frame_chunk=frame_chunk, accum_steps=accum, remat=remat)
+
+    losses, ms = [], []
+    extension.reset_launches()
+    for i in range(steps):
+        begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        begin.record()
+        m = step()
+        end.record()
+        ever |= torch.stack([p.grad.abs().amax() for p in params]) > 0
+        losses.append(m["loss"])
+        if timed_from is not None and i >= timed_from:
+            end.synchronize()
+            ms.append(begin.elapsed_time(end))
+    losses = torch.stack(losses).tolist()
+    names = {id(p): n for n, p in model.named_parameters()}
+    return dict(losses=losses, ms=ms, launches=dict(extension.LAUNCHES), start=start,
+                ever_grad={names[id(p)] for p, e in zip(params, ever.tolist()) if e},
+                opt=opt, step=step)
+
+
+def profile_step(step):
+    """One more step under ``torch.profiler``: the device's busy ms (kernels
+    and copies, summed) and how many kernels ran, with the top kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    # kernels and copies; a user annotation (Optimizer.step) spans some of them
+    device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)
+              and not e.key.startswith("Optimizer.")]
+    busy_ms = sum(e.self_device_time_total for e in device) / 1e3
+    top = sorted(device, key=lambda e: -e.self_device_time_total)[:8]
+    return busy_ms, sum(e.count for e in device), [
+        (e.key[:60], round(e.self_device_time_total / 1e3, 3), e.count) for e in top]
+
+
+def check_trained(model, run, name, *, bn_prefixes):
+    """The checks of a full-width train run: finite losses; the frozen
+    tensors bit for bit; every other tensor with a nonzero value or gradient
+    moved; the running statistics under ``bn_prefixes`` moved; no K2, K3, K4,
+    fold or pack."""
+    if not all(np.isfinite(run["losses"])):
+        fail(f"train {name}: losses {run['losses']}")
+    frozen, start = set(detector_frozen_names()), run["start"]
+    still = []
+    for n, p in model.named_parameters():
+        if n in frozen:
+            if not torch.equal(p, start[n]):
+                fail(f"train {name}: frozen tensor {n} changed")
+        elif (n in run["ever_grad"] or bool((start[n] != 0).any())) and torch.equal(p, start[n]):
+            still.append(n)
+    if still:
+        fail(f"train {name}: {len(still)} tensors with a nonzero value or gradient did "
+             f"not move: {still[:8]}")
+    stats = [n for n, _ in model.named_buffers()
+             if n.endswith(("running_mean", "running_var")) and n.startswith(bn_prefixes)]
+    bufs = dict(model.named_buffers())
+    unmoved = [n for n in stats if torch.equal(bufs[n], start[n])]
+    if not stats or unmoved:
+        fail(f"train {name}: running statistics that did not move: {unmoved[:8]}")
+    for k in NOT_IN_TRAIN:
+        if run["launches"][k]:
+            fail(f"train {name}: {k} counted {run['launches'][k]} in train steps")
+    return len(stats)
+
+
+def grads_of(model):
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters()
+            if p.grad is not None}
+
+
+def fp32_step(cfg, state, clip, label, **kw):
+    """One fp32 train step on one short clip, with cuDNN's deterministic
+    algorithms; its loss, gradients and BN running statistics."""
+    model = train_model(cfg.replace(compute_dtype="float32"), state)
+    torch.backends.cudnn.deterministic = True
+    try:
+        run = train_steps(model, clip, label, mode="dynamic", steps=1, accum=1,
+                          frame_chunk=4, **kw)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    stats = {n: b.clone() for n, b in model.named_buffers()
+             if n.endswith(("running_mean", "running_var"))}
+    out = (run["losses"][0], grads_of(model), stats, run["launches"])
+    del model, run
+    torch.cuda.empty_cache()
+    return out
+
+
+def compare_steps(a, b, what):
+    """Loss 1e-5, each gradient 1e-4 of its tensor's max abs, running
+    statistics 1e-5."""
+    (la, ga, sa, _), (lb, gb, sb, _) = a, b
+    if abs(la - lb) > 1e-5:
+        fail(f"{what}: loss {la} vs {lb}")
+    if ga.keys() != gb.keys():
+        fail(f"{what}: different parameters have gradients")
+    worst = 0.0
+    for n in ga:
+        scale = ga[n].abs().max().item()
+        err = (ga[n] - gb[n]).abs().max().item()
+        if err > 1e-4 * scale:
+            fail(f"{what}: gradient {n} differs by {err:.3e} (max abs {scale:.3e})")
+        worst = max(worst, err / scale if scale else 0.0)
+    stat_err = max((sa[n] - sb[n]).abs().max().item() for n in sa)
+    if stat_err > 1e-5:
+        fail(f"{what}: running statistics differ by {stat_err:.3e}")
+    print(f"[train] {what}: loss {la:.7f} vs {lb:.7f}, worst gradient difference "
+          f"{worst:.3e} of its tensor's max abs, running statistics {stat_err:.3e}")
+
+
+def phase_train(state, cfg, clips, chunk=32):
+    """The train step in the three modes (``cfg``, with the kernel flags on),
+    with kernel checks, the fp32 K1 and remat comparisons and the repair;
+    returns the dynamic step's measurements and launches per step."""
+    labels = np.array([1.0, 0.0, 1.0, 0.0], np.float32)
+    accum, steps = 2, 8
+
+    model = train_model(cfg, state)
+    torch.cuda.reset_peak_memory_stats()
+    run = train_steps(model, clips, labels, mode="dynamic", steps=steps, accum=accum,
+                      frame_chunk=chunk, timed_from=2)
+    peak = torch.cuda.max_memory_allocated()
+    losses = run["losses"]
+    print(f"[train] dynamic, {steps} steps, lr {TRAIN_LR}: losses {[round(v, 5) for v in losses]}")
+    if not np.mean(losses[-3:]) < np.mean(losses[:3]):
+        fail(f"train dynamic: the loss did not fall ({losses})")
+    n_stats = check_trained(model, run, "dynamic", bn_prefixes=("dama.",))
+    k1 = k1_per_step(cfg, "dynamic", clips.shape[1], accum, chunk)
+    if run["launches"]["haar_dwt2d"] != k1 * steps:
+        fail(f"train dynamic: K1 launched {run['launches']['haar_dwt2d']} times in "
+             f"{steps} steps, expected {k1} per step")
+    step_ms = float(np.mean(run["ms"]))
+    frames = clips.shape[0] * clips.shape[1]
+    busy_ms, device_ops, top = profile_step(run["step"])
+    measured = dict(ms_per_step=step_ms, ms_per_step_each=run["ms"],
+                    frames_per_s=frames / (step_ms / 1e3), peak_bytes=peak,
+                    device_busy_ms=busy_ms, idle_share=1.0 - busy_ms / step_ms,
+                    device_ops_per_step=device_ops, top_device_ops=top,
+                    k1_per_step=k1, launches_per_step={
+                        k: v / steps for k, v in run["launches"].items()})
+    if busy_ms <= 0:
+        fail("the profiler saw no device time in a train step")
+    print(f"[train] dynamic at full width (bf16 autocast, accum 2 x 2 clips x 40 frames, "
+          f"frame_chunk 32, remat): {step_ms:.3f} ms per step (CUDA events, mean of "
+          f"{len(run['ms'])} after 2 warm steps: {[round(v, 3) for v in run['ms']]}), "
+          f"{measured['frames_per_s']:.1f} frames trained per s, peak "
+          f"{peak / 2**30:.3f} GiB allocated; one profiled step: device busy "
+          f"{busy_ms:.3f} ms in {device_ops} device operations (idle share "
+          f"{measured['idle_share']:.3f} of the timed steps' mean), top {top}; "
+          f"hand-written kernel launches per step "
+          f"{measured['launches_per_step']}; {n_stats} DAMA running statistics moved; "
+          f"the 18 frozen tensors unchanged; lr of the last update "
+          f"{run['opt'].param_groups[0]['lr']:.3e}")
+
+    # the repair: an eval forward with grad enabled through the kernels raises
+    model.eval()
+    x = preprocess_batch(torch.from_numpy(clips[:1, :2]).to("cuda"), torch.float32)[0]
+    try:
+        with torch.enable_grad():
+            model(x, "dynamic")
+    except RuntimeError as e:
+        if "use_pallas_dwse" not in str(e):
+            raise
+        print(f"[train] eval forward with grad enabled raises: {e}")
+    else:
+        fail("an eval-mode forward with grad enabled through K2 did not raise")
+    del model, run
+    torch.cuda.empty_cache()
+
+    # fp32, one clip of 10 frames: K1 in place and remat, each on and off
+    clip, label = clips[:1, :10], labels[:1]
+    k1_on = fp32_step(cfg, state, clip, label)
+    want = k1_per_step(cfg, "dynamic", 10, 1, 4)
+    if k1_on[3]["haar_dwt2d"] != want:
+        fail(f"fp32 step: K1 launched {k1_on[3]['haar_dwt2d']} times, expected {want}")
+    k1_off = fp32_step(cfg.replace(use_pallas_dwt=False), state, clip, label)
+    if k1_off[3]["haar_dwt2d"]:
+        fail("use_pallas_dwt off launched K1")
+    compare_steps(k1_on, k1_off, "fp32 step, K1 on vs off")
+    no_remat = fp32_step(cfg, state, clip, label, remat=False)
+    compare_steps(k1_on, no_remat, "fp32 step, remat on vs off")
+
+    # the sfe modes, 2 steps each
+    for mode, prefixes in (("sfe_mwt", ("sfe.", "mwt.")), ("sfe_only", ("sfe_cls.",))):
+        model = train_model(cfg, state)
+        run = train_steps(model, clips, labels, mode=mode, steps=2, accum=accum,
+                          frame_chunk=chunk)
+        n = check_trained(model, run, mode, bn_prefixes=prefixes)
+        want = k1_per_step(cfg, mode, clips.shape[1], accum, chunk)
+        if run["launches"]["haar_dwt2d"] != 2 * want:
+            fail(f"train {mode}: K1 launched {run['launches']['haar_dwt2d']} times in 2 "
+                 f"steps, expected {want} per step")
+        print(f"[train] {mode}: losses {[round(v, 5) for v in run['losses']]}, K1 "
+              f"{want} per step, {n} running statistics moved, launches {run['launches']}")
+        del model, run
+        torch.cuda.empty_cache()
+    return measured
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -859,14 +1134,18 @@ def main() -> int:
     state = random_detector(PATHS["three_flags"][0], device="cuda", seed=0).state_dict()
     served = phase_serve(requests, state)
     phase_checkpoint(requests, state, served)
+    trained = phase_train(state, ModelConfig().replace(**TRAIN_FLAGS),
+                          rng.integers(0, 256, (4, 40, 224, 224, 3), dtype=np.uint8))
+    print(f"[train] {json.dumps(trained)}")
     launches = {name: run["launches"] for name, run in served.items()}
     for r in report:
         r["launches_by_path"] = {p: n[r["name"]] for p, n in launches.items()}
+        r["train_launches_per_step"] = trained["launches_per_step"][r["name"]]
         if r["name"] != "conv3x3_winograd":   # K5: the kernels phase's count
             r["launches"] = launches["fused_mwt_tail"][r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "cold_ms", "general_ms", "max_active_clusters")
+            "train_launches_per_step", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "cold_ms", "general_ms", "max_active_clusters")
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [{k: r.get(k) for k in keys} for r in report]}))
     print(json.dumps({"ok": True, "device": {

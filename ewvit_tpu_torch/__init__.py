@@ -4,8 +4,11 @@ Serves the DeepfakeDetector in its three ablation modes (``dynamic``,
 ``sfe_only``, ``sfe_mwt``; ``InferenceEngine(mode=...)``, also
 ``InferenceEngine.from_checkpoint`` on a reference ``.pth``) on hand-written
 CUDA kernels (Haar DWT, depthwise+BN+SiLU+SE-mean, the Winograd MWT tail,
-DAMA cross-attention; ``csrc/``), and evaluates it (``evaluation.evaluate``:
-the eval losses and the metric suite). Imports torch and numpy only,
+DAMA cross-attention; ``csrc/``), evaluates it (``evaluation.evaluate``:
+the eval losses and the metric suite), and trains it (``train.steps.
+train_step`` with ``train.optimizer.make_optimizer``: gradient accumulation,
+per-chunk remat, bf16 autocast; K1 runs in the training forward, K2-K4 are
+inference-only as in the JAX package). Imports torch and numpy only,
 never JAX or the ewvit_tpu package. Entry points run on the GPU unless the
 caller passes ``device="cpu"``.
 """

@@ -5,7 +5,7 @@ the backbone block tables of ``ewvit_tpu/models/efficientnet.py``
 (``BlockCfg``, ``B0_BLOCKS``, ``B0_MICRO``, ``V2S_BLOCKS``, ``V2S_MICRO``,
 ``BackboneSpec``). The port imports nothing of the JAX package, so the values
 are repeated here and the CPU tests hold the two copies equal.
-``TrainConfig`` arrives with the train slice.
+``TrainConfig`` waits for the ``Trainer`` (ROADMAP).
 """
 
 from __future__ import annotations
@@ -107,11 +107,12 @@ class ModelConfig:
     ``ewvit_tpu_torch.ops``; each runs only on CUDA tensors, and a CPU tensor
     takes the kernel's plain PyTorch version. ``backbone_factory`` (a JAX
     test hook) is refused by ``DeepfakeDetector``.
-    ``param_dtype``, ``remat_frames``, ``fused_eval_pyramid``,
-    ``fused_train_pyramid`` and ``use_s2d_stem`` choose among formulations of
-    the same math in the JAX package; the port has one formulation each and
-    reads them nowhere. ``frame_chunk`` is, as in the JAX package, a default
-    for callers: ``video_forward`` and ``InferenceEngine`` take their own.
+    ``param_dtype``, ``fused_eval_pyramid``, ``fused_train_pyramid`` and
+    ``use_s2d_stem`` choose among formulations of the same math in the JAX
+    package; the port has one formulation each and reads them nowhere.
+    ``remat_frames`` is the train forward's default for per-chunk remat.
+    ``frame_chunk`` is, as in the JAX package, a default for callers:
+    ``video_forward``, ``train_step`` and ``InferenceEngine`` take their own.
     """
 
     arch: ArchConfig = dataclasses.field(default_factory=ArchConfig)

@@ -1,4 +1,4 @@
-"""DeepfakeDetector and the eval-mode video forward (ewvit_tpu/models/detector.py).
+"""DeepfakeDetector and the video forward (ewvit_tpu/models/detector.py).
 
 Modules, with the reference's names (model.py:35-68):
 
@@ -13,21 +13,38 @@ Every mode's modules are built, so a checkpoint in the reference layout
 loads with ``strict=True``; a forward runs only its mode's modules.
 
 :func:`video_forward` is the chunk loop of the JAX ``video_forward``
-(detector.py:171-305) in eval mode: chunk = ``min(frame_chunk, K)``, the
-ragged tail chunk is zero-padded to full size and masked out of the sums,
-each chunk is flattened B-major (``[B, chunk] -> B*chunk``, so flattened row
-``b*chunk + t`` meets positional row ``b*chunk + t`` as in the reference),
-the mode's per-frame outputs (:func:`feat_dims`) are summed in fp32, divided
-by K and cast to the compute dtype, and the mode's head runs on the means.
+(detector.py:171-305): chunk = ``min(frame_chunk, K)``, each chunk is
+flattened B-major (``[B, chunk] -> B*chunk``, so flattened row ``b*chunk + t``
+meets positional row ``b*chunk + t`` as in the reference), the mode's
+per-frame outputs (:func:`feat_dims`) are summed in fp32, divided by K and
+cast to the compute dtype, and the mode's head runs on the means.
+
+- Eval mode (``model.eval()``, under ``no_grad``): the ragged tail chunk is
+  zero-padded to full size and masked out of the sums.
+- Train mode (``model.train()``, with autograd): the tail runs as a true,
+  smaller chunk, since pad rows would enter every BN's batch statistics
+  (detector.py:203-215). Dropout and stochastic depth draw from torch's
+  default generators, seeded per chunk from ``seed`` (:func:`chunk_seeds`,
+  as the JAX package splits its key per chunk), so a step is a function of
+  its seed and a remat recompute draws the forward's masks. With ``remat``
+  (``ModelConfig.remat_frames``) each chunk runs under
+  ``torch.utils.checkpoint`` (the counterpart of ``jax.checkpoint``,
+  detector.py:259-265): its activations are recomputed in the backward, with
+  every BN's momentum at 0 so that the running statistics move once per
+  chunk, as in the functional JAX recompute.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
-from typing import Dict
+from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from ewvit_tpu_torch.configs import ModelConfig
 from ewvit_tpu_torch.device import DeviceLike, compute_dtype, resolve_device
@@ -164,14 +181,89 @@ def random_detector(cfg: ModelConfig, *, device: DeviceLike = "cuda", seed: int 
     return model
 
 
-@torch.no_grad()
+def chunk_seeds(seed: int, n: int) -> List[int]:
+    """``n`` independent seeds derived from ``seed`` (numpy's SeedSequence)."""
+    return [int(v) for v in np.random.SeedSequence(int(seed)).generate_state(n)]
+
+
+@contextlib.contextmanager
+def seeded(seed: int, device: torch.device):
+    """Run the block with torch's default generators (the CPU's and
+    ``device``'s) seeded to ``seed``, and restore them after: dropout and
+    stochastic depth then draw the same masks for the same seed, in the
+    forward and in its remat recompute alike."""
+    devices = [device.index if device.index is not None else torch.cuda.current_device()] \
+        if device.type == "cuda" else []
+    with torch.random.fork_rng(devices=devices):
+        torch.random.default_generator.manual_seed(seed)
+        if devices:
+            with torch.cuda.device(devices[0]):
+                torch.cuda.manual_seed(seed)
+        yield
+
+
+@contextlib.contextmanager
+def _running_stats_frozen(bns: List[nn.modules.batchnorm._BatchNorm]):
+    """A remat recompute: every BN normalises with its batch statistics as
+    in the forward, but leaves its running statistics (momentum 0) and its
+    ``num_batches_tracked`` (set aside) as they are."""
+    saved = [(bn.momentum, bn.num_batches_tracked) for bn in bns]
+    for bn in bns:
+        bn.momentum, bn.num_batches_tracked = 0.0, None
+    try:
+        yield
+    finally:
+        for bn, (momentum, tracked) in zip(bns, saved):
+            bn.momentum, bn.num_batches_tracked = momentum, tracked
+
+
+def _train_chunk(model: DeepfakeDetector, flat: torch.Tensor, mode: str, seed: int):
+    with seeded(seed, flat.device):
+        return model(flat, mode)
+
+
 def video_forward(model: DeepfakeDetector, x: torch.Tensor, *, mode: str = "dynamic",
-                  frame_chunk: int = 8) -> Dict[str, torch.Tensor]:
+                  frame_chunk: int = 8, seed: int = 0,
+                  remat: Optional[bool] = None) -> Dict[str, torch.Tensor]:
     """``x`` ``[B, K, 3, H, W]`` preprocessed frames -> the mode's head
     outputs: ``{'logits': [B, 1]}`` plus ``'fused', 'space', 'freq'``
-    (``dynamic``) or ``'sfe', 'mwt'`` (``sfe_mwt``), each ``[B, dim]``."""
+    (``dynamic``) or ``'sfe', 'mwt'`` (``sfe_mwt``), each ``[B, dim]``.
+
+    In eval mode it runs under ``no_grad``. In train mode it records the
+    graph; ``seed`` seeds dropout and stochastic depth, and ``remat``
+    (default ``model.cfg.remat_frames``) checkpoints each chunk."""
     if model.training:
-        raise NotImplementedError("train-mode video_forward is not ported yet")
+        return _train_video_forward(model, x, mode, frame_chunk, seed,
+                                    model.cfg.remat_frames if remat is None else remat)
+    with torch.no_grad():
+        return _eval_video_forward(model, x, mode, frame_chunk)
+
+
+def _train_video_forward(model, x, mode, frame_chunk, seed, remat):
+    b, k = x.shape[:2]
+    chunk = min(frame_chunk, k)
+    starts = range(0, k, chunk)
+    seeds = chunk_seeds(seed, len(starts) + 1)      # one per chunk, one for the head
+    run = _train_chunk
+    if remat:
+        bns = [m for m in model.modules() if isinstance(m, nn.modules.batchnorm._BatchNorm)]
+        contexts = lambda: (contextlib.nullcontext(), _running_stats_frozen(bns))  # noqa: E731
+        run = functools.partial(checkpoint, _train_chunk, use_reentrant=False,
+                                preserve_rng_state=False, context_fn=contexts)
+    sums = {key: torch.zeros(b, d, dtype=torch.float32, device=x.device)
+            for key, d in feat_dims(model.cfg, check_mode(mode)).items()}
+    for start, s in zip(starts, seeds):
+        fr = x[:, start:start + chunk]
+        n = fr.shape[1]                   # the tail chunk is smaller
+        out = run(model, fr.reshape(b * n, *x.shape[2:]), mode, s)
+        sums = {key: v + out[key].float().reshape(b, n, -1).sum(dim=1)
+                for key, v in sums.items()}
+    dt = compute_dtype(model.cfg.compute_dtype)
+    with seeded(seeds[-1], x.device):
+        return model.head({key: (v / k).to(dt) for key, v in sums.items()}, mode)
+
+
+def _eval_video_forward(model, x, mode, frame_chunk):
     b, k = x.shape[:2]
     chunk = min(frame_chunk, k)
     sums = {key: torch.zeros(b, d, dtype=torch.float32, device=x.device)

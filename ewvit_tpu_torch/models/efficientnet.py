@@ -8,23 +8,29 @@
   ``_project_conv``, ``_bn2``, then ``_conv_head``, ``_bn1``. Convs with
   k > 1 take TensorFlow's 'SAME' padding (:class:`Conv2dSame`: asymmetric
   at stride 2, symmetric at stride 1 for odd k), BN eps 1e-3 and torch
-  momentum 0.01 (flax 0.99), and each block records its drop-connect rate
-  ``0.2 * i / blocks`` (identity in eval).
+  momentum 0.01 (flax 0.99).
 - :class:`EfficientNetV2S` has torchvision's ``efficientnet_v2_s().features``
   layout: names ``features.S.R.block.J...``, stem ``features.0``, one
   ``nn.Sequential`` per stage, head ``features.{S+1}``. Convs use symmetric
   ``(k-1)//2`` padding, BN eps 1e-3 and torch momentum 0.1 (flax 0.9).
 
 Both use SiLU and an SE squeeze of ``max(1, int(in * 0.25))`` from the block
-input. With ``use_pallas_dwse`` an eval-mode stride-1 SE block of either
-backbone (:class:`DepthwiseSE`) folds its depthwise BN into
+input. Every block records its stochastic-depth rate ``0.2 * idx / total``
+(``idx`` flat over the backbone's blocks, efficientnet.py:377-395); in train
+mode a residual block drops its branch per row (:func:`stochastic_depth`),
+drawing from torch's default generator, which the train forward seeds per
+chunk (``models/detector.py``). In train mode BN uses batch statistics and
+updates its running ones. With ``use_pallas_dwse`` an eval-mode stride-1 SE
+block of either backbone (:class:`DepthwiseSE`) folds its depthwise BN into
 ``w_eff``/``shift`` and runs K2 (``ops/dw_se.py``), whose fp32 spatial mean
 feeds the SE in place of a second read of y (efficientnet.py:301-314). The
 fold, packed for the kernel, is kept per model in eval mode (computed at
 ``serving.cast_for_inference`` or the first call, dropped on ``train()``,
 ``load_state_dict`` and ``drop_kept_weights()``, and folded again after an
 in-place edit of the tensors it reads; ``models/kept.py``), so a request
-folds nothing. Stride-2 SE blocks stay plain.
+folds nothing. Stride-2 SE blocks and train mode stay plain (as in the JAX
+package, efficientnet.py:301); an eval forward with grad enabled on K2's
+path raises (``extension.refuse_autograd``).
 """
 
 from __future__ import annotations
@@ -64,6 +70,19 @@ class Conv2dSame(nn.Conv2d):
     def forward(self, x):
         pad = same_padding(*x.shape[2:], self.kernel_size[0], self.stride[0])
         return super().forward(F.pad(x, pad) if any(pad) else x)
+
+
+DROP_CONNECT_RATE = 0.2       # both backbones (ewvit_tpu/models/efficientnet.py:367)
+
+
+def stochastic_depth(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
+    """Row-mode stochastic depth on a residual branch (efficientnet.py:261-268):
+    one Bernoulli(keep) per row; a kept row is ``x / keep``, a dropped row 0."""
+    if not training or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.empty((x.shape[0],) + (1,) * (x.dim() - 1), device=x.device).bernoulli_(keep)
+    return torch.where(mask.bool(), x / keep, torch.zeros_like(x))
 
 
 def squeeze_excite(x, reduce: nn.Conv2d, expand: nn.Conv2d, mean=None):
@@ -120,6 +139,9 @@ class DepthwiseSE(KeepsWeights):
         plain modules."""
         conv, bn, reduce, expand = self._dw_modules()
         if self.fuse_dwse and not self.training:
+            if torch.is_grad_enabled():
+                extension.refuse_autograd("use_pallas_dwse", h, conv.weight, bn.weight,
+                                          bn.bias)
             y, m = dw_bn_silu_mean_packed(h, self._dwse_weights(), self.kernel)
             return squeeze_excite(y, reduce, expand, mean=m[:, :, None, None])
         return squeeze_excite(F.silu(bn(conv(h))), reduce, expand)
@@ -156,12 +178,14 @@ class MBConv(DepthwiseSE):
     """V2-S inverted residual: [expand] -> depthwise -> SE -> project (+ residual)."""
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int,
-                 expand: int, se_ratio: float, use_pallas_dwse: bool = False):
+                 expand: int, se_ratio: float, drop_rate: float = 0.0,
+                 use_pallas_dwse: bool = False):
         super().__init__(kernel, use_pallas_dwse and stride == 1)
         if se_ratio <= 0:
             raise ValueError("V2-S MBConv blocks all carry squeeze-excite (se_ratio > 0)")
         exp = cin * expand
         self.use_res = stride == 1 and cin == cout
+        self.drop_rate = drop_rate
         self.has_expand = expand != 1
         layers = [ConvBNAct(cin, exp, 1)] if self.has_expand else []
         layers.append(ConvBNAct(exp, exp, kernel, stride, groups=exp))
@@ -177,15 +201,17 @@ class MBConv(DepthwiseSE):
     def forward(self, x):
         h = self.block[0](x) if self.has_expand else x
         h = self.block[-1](self.depthwise_se(h))
-        return x + h if self.use_res else h
+        return x + stochastic_depth(h, self.drop_rate, self.training) if self.use_res else h
 
 
 class FusedMBConv(nn.Module):
     """V2 early stages: a full k x k conv replaces expand + depthwise."""
 
-    def __init__(self, cin: int, cout: int, kernel: int, stride: int, expand: int):
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int, expand: int,
+                 drop_rate: float = 0.0):
         super().__init__()
         self.use_res = stride == 1 and cin == cout
+        self.drop_rate = drop_rate
         if expand != 1:
             layers = [ConvBNAct(cin, cin * expand, kernel, stride),
                       ConvBNAct(cin * expand, cout, 1, act=False)]
@@ -195,27 +221,30 @@ class FusedMBConv(nn.Module):
 
     def forward(self, x):
         h = self.block(x)
-        return x + h if self.use_res else h
+        return x + stochastic_depth(h, self.drop_rate, self.training) if self.use_res else h
 
 
 class EfficientNetV2S(nn.Module):
-    """[N, 3, H, W] -> [N, head_ch, H/32, W/32] (eval; stochastic depth is identity)."""
+    """[N, 3, H, W] -> [N, head_ch, H/32, W/32]."""
 
     def __init__(self, spec: BackboneSpec = V2S_FULL, use_pallas_dwse: bool = False):
         super().__init__()
         stages = [ConvBNAct(3, spec.stem_ch, 3, 2)]
+        total, idx = sum(cfg.repeats for cfg in spec.blocks), 0
         for cfg in spec.blocks:
             blocks = []
             for r in range(cfg.repeats):
                 cin = cfg.in_ch if r == 0 else cfg.out_ch
                 stride = cfg.stride if r == 0 else 1
+                rate = DROP_CONNECT_RATE * idx / total
                 if cfg.fused:
                     blocks.append(FusedMBConv(cin, cfg.out_ch, cfg.kernel, stride,
-                                              cfg.expand))
+                                              cfg.expand, rate))
                 else:
                     blocks.append(MBConv(cin, cfg.out_ch, cfg.kernel, stride,
-                                         cfg.expand, cfg.se_ratio,
+                                         cfg.expand, cfg.se_ratio, rate,
                                          use_pallas_dwse=use_pallas_dwse))
+                idx += 1
             stages.append(nn.Sequential(*blocks))
         stages.append(ConvBNAct(spec.blocks[-1].out_ch, spec.head_ch, 1))
         self.features = nn.Sequential(*stages)
@@ -241,7 +270,7 @@ class MBConvBlock(DepthwiseSE):
         super().__init__(kernel, use_pallas_dwse and stride == 1)
         exp = cin * expand
         self.use_res = stride == 1 and cin == cout
-        self.drop_rate = drop_rate     # drop connect: the identity in eval
+        self.drop_rate = drop_rate
         self.has_expand = expand != 1
         if self.has_expand:
             self._expand_conv = nn.Conv2d(cin, exp, 1, bias=False)
@@ -260,14 +289,14 @@ class MBConvBlock(DepthwiseSE):
     def forward(self, x):
         h = F.silu(self._bn0(self._expand_conv(x))) if self.has_expand else x
         h = self._bn2(self._project_conv(self.depthwise_se(h)))
-        return x + h if self.use_res else h
+        return x + stochastic_depth(h, self.drop_rate, self.training) if self.use_res else h
 
 
 class EfficientNetB0(nn.Module):
-    """[N, 3, H, W] -> [N, head_ch, ceil(H/32), ceil(W/32)] (eval)."""
+    """[N, 3, H, W] -> [N, head_ch, ceil(H/32), ceil(W/32)]."""
 
     def __init__(self, spec: Optional[BackboneSpec] = None,
-                 use_pallas_dwse: bool = False, drop_connect_rate: float = 0.2):
+                 use_pallas_dwse: bool = False):
         super().__init__()
         spec = spec or B0_FULL
         self._conv_stem = Conv2dSame(3, spec.stem_ch, 3, 2)
@@ -279,7 +308,7 @@ class EfficientNetB0(nn.Module):
                 blocks.append(MBConvBlock(
                     cfg.in_ch if r == 0 else cfg.out_ch, cfg.out_ch, cfg.kernel,
                     cfg.stride if r == 0 else 1, cfg.expand, cfg.se_ratio,
-                    drop_connect_rate * len(blocks) / total,
+                    DROP_CONNECT_RATE * len(blocks) / total,
                     use_pallas_dwse=use_pallas_dwse))
         self._blocks = nn.ModuleList(blocks)
         self._conv_head = nn.Conv2d(spec.blocks[-1].out_ch, spec.head_ch, 1, bias=False)

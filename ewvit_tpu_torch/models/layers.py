@@ -127,7 +127,9 @@ class BidirectionalCrossTransformer(KeepsWeights):
     ``serving.cast_for_inference`` or the first fused call, dropped on
     ``train()``, ``load_state_dict`` and ``drop_kept_weights()``, and packed
     again when a tensor they read is replaced or edited in place
-    (``models/kept.py``).
+    (``models/kept.py``). K4 has no backward: a fused forward with grad
+    enabled raises (``extension.refuse_autograd``); train mode takes the
+    plain stack, as the JAX package does (fused_attention.py:46-48).
     """
 
     def __init__(self, dim: int, depth: int = 1, heads: int = 8,
@@ -191,6 +193,8 @@ class BidirectionalCrossTransformer(KeepsWeights):
 
     def forward(self, space, freq):
         if self.fuses(space.shape[1]):
+            if torch.is_grad_enabled():
+                extension.refuse_autograd("use_pallas_dama", space, freq, *self.parameters())
             s, f = space[:, 0].contiguous(), freq[:, 0].contiguous()
             packed = self._xattn_weights()
             if cluster_route(self.dim, self.heads):

@@ -1,4 +1,4 @@
-"""MWT: multi-level wavelet frequency branch, eval mode, NCHW (ewvit_tpu/models/mwt.py).
+"""MWT: multi-level wavelet frequency branch, NCHW (ewvit_tpu/models/mwt.py).
 
 Per level: Haar DWT (K1 with ``use_pallas_dwt``) -> hf ``[N, 3C, H', W']`` in
 the ``c*3 + band`` interleave -> bilinear upsample to ``(H/2, W/2)``
@@ -8,19 +8,27 @@ the three SHARED ``hf_sep_i`` conv+BN+ReLU stacks on the channel slices
 Then concat of the levels -> ``multiscale_fusion`` -> stride-2 ``freq_conv``
 -> maxpool -> stride-2 ``freq_pool`` conv -> spatial mean ``[N, dim, 1, 1]``.
 
-Form ported: the reference-structured one (conv + bias, then eval BN, then
+Form ported: the reference-structured one (conv + bias, then BN, then
 ReLU), which is the same math as the JAX package's default ``"level"`` fast
 path. The three hf_sep convs run as ONE ``groups=3`` conv on the 3C-channel
 hf map: group i sees exactly channels ``[i*C:(i+1)*C]``, so the products are
-those of the three separate convs. All other convs are plain ``F.conv2d``
-except, with ``use_fused_tail``, ``multiscale_fusion``.
+those of the three separate convs. In eval mode each stack's BN is applied
+folded; in train mode each hf_sep BN runs on its channel slice with batch
+statistics (the JAX package's ``fused_train_pyramid`` form, the same
+statistics as its default per-slice convs). The hf_sep stacks and
+``hf_fusion`` are shared by the levels, so their running statistics move
+once per level, level by level. All other convs are plain ``F.conv2d``
+except, with ``use_fused_tail`` in eval mode, ``multiscale_fusion``. K1 runs
+in train mode too: its input (the frames, then their LL bands) needs no
+gradient.
 
 ``use_fused_tail`` (``ModelConfig.use_fused_mwt_tail``) runs
 ``multiscale_fusion`` with its conv bias and eval BN folded in as K3, the
 Winograd kernel of ``ops/mwt_tail.py``, on the per-level ``hf_fusion``
 outputs (never concatenated), under the JAX package's gate
-(ewvit_tpu/models/mwt.py:242-245): ``H/2`` and ``W/2`` even and
-``H/4 >= 4``; otherwise the direct conv runs. ``freq_conv`` stays the
+(ewvit_tpu/models/mwt.py:242-245): eval mode, ``H/2`` and ``W/2`` even and
+``H/4 >= 4``; otherwise the direct conv runs. With grad enabled it raises
+(``extension.refuse_autograd``): K3 has no backward. ``freq_conv`` stays the
 ordinary stride-2 conv: the JAX package's ``freq_from_phases`` only undoes
 its Mosaic phase layout. Same parameters either way. U (BN scale folded in)
 and the fp32 bias are computed once in eval mode, at the first call or from
@@ -63,7 +71,7 @@ class ConvBNReLU(nn.Sequential):
 
 
 class MWT(KeepsWeights):
-    """[N, C, H, W] -> [N, dama_dim, 1, 1] (eval only)."""
+    """[N, C, H, W] -> [N, dama_dim, 1, 1]."""
 
     def __init__(self, in_channels: int = 3, dama_dim: int = 128,
                  levels: int = 3, use_pallas_dwt: bool = False,
@@ -93,11 +101,15 @@ class MWT(KeepsWeights):
 
     def _hf_sep(self, hf):
         """The three shared hf_sep stacks on their channel slices, as one
-        grouped conv followed by each stack's eval BN and ReLU."""
+        grouped conv followed by each stack's BN and ReLU (in train mode BN
+        ``i`` on output slice ``i``, in the JAX order: slice 0, 1, 2)."""
         seps = self.hf_conv["seperate"]
         w = torch.cat([s[0].weight for s in seps])
         b = torch.cat([s[0].bias for s in seps])
         y = F.conv2d(hf, w, b, padding=1, groups=3)
+        if self.training:
+            return torch.cat([s[2](s[1](part)) for s, part in zip(seps, y.chunk(3, dim=1))],
+                             dim=1)
         folded = [s[1].folded() for s in seps]
         scale = torch.cat([f[0] for f in folded]).to(y.dtype)[:, None, None]
         shift = torch.cat([f[1] for f in folded]).to(y.dtype)[:, None, None]
@@ -125,11 +137,13 @@ class MWT(KeepsWeights):
     def _fused_multiscale(self, highs):
         """multiscale_fusion (conv + bias, eval BN, ReLU) as K3 on the level
         maps, with the kept U and bias."""
+        conv, bn = self.multiscale_fusion[0], self.multiscale_fusion[1]
+        if torch.is_grad_enabled():
+            extension.refuse_autograd("use_fused_mwt_tail", *highs, conv.weight, conv.bias,
+                                      bn.weight, bn.bias)
         return fused_multiscale_winograd_packed(highs, *self._tail_weights(highs[0].dtype))
 
     def forward(self, x):
-        if self.training:
-            raise NotImplementedError("the port's MWT is eval-only so far")
         h, w = x.shape[2:]
         target = (h // 2, w // 2)
         dwt = haar_dwt2d if self.use_pallas_dwt else haar_dwt2d_plain
@@ -141,7 +155,7 @@ class MWT(KeepsWeights):
                                    align_corners=False)
             highs.append(self.hf_conv["fusion"](self._hf_sep(hf)))
             cur = ll
-        if self.use_fused_tail and target[0] % 2 == 0 and target[1] % 2 == 0 \
+        if self.use_fused_tail and not self.training and target[0] % 2 == 0 and target[1] % 2 == 0 \
                 and target[0] // 2 >= 4:
             fused = self._fused_multiscale(highs)
         else:

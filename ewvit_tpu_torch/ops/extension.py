@@ -218,6 +218,24 @@ def dtype_code(t: torch.Tensor) -> int:
     return code
 
 
+def refuse_autograd(flag: str, *tensors: torch.Tensor) -> None:
+    """Raise if autograd would record a kernel on ``tensors``.
+
+    No kernel here has a backward, and none of the JAX package's kernels does
+    either (``jax.grad`` through them fails). So a kernel whose input, or a
+    parameter that its kept weights are folded from, requires grad while grad
+    is enabled raises instead of cutting the graph and leaving those
+    parameters without a gradient. ``flag`` is the config field that routes
+    the path through the kernel. Serving runs under ``no_grad``; training
+    routes around K2, K3 and K4 and runs K1 on frames, which need no grad.
+    """
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{flag}: this kernel has no backward, and autograd is recording "
+            "a tensor it reads; run it under torch.no_grad() (serving), put "
+            f"the module in train mode, or turn {flag} off")
+
+
 def launch(stem: str, fn: str, counter: str, *args) -> None:
     """Call a C entry point on the current stream and count the launch.
 

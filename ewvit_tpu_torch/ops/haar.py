@@ -13,7 +13,10 @@ is the reference's per-input-channel slice.
 - :func:`haar_dwt2d_plain` -- plain PyTorch, fp32 arithmetic rounded once to
   the input dtype (the TPU kernel's fp32 matmul does the same).
 - :func:`haar_dwt2d` -- K1, the hand-written kernel ``csrc/haar.cu`` for a
-  CUDA tensor; a CPU tensor takes the plain version.
+  CUDA tensor; a CPU tensor takes the plain version. Forward only: an input
+  that requires grad raises while grad is enabled, on either device. The
+  MWT's DWT reads the frames and their LL bands, which depend on no
+  parameter, so K1 runs in the training forward too.
 """
 
 from __future__ import annotations
@@ -63,6 +66,7 @@ def haar_idwt2d(ll: torch.Tensor, hf: torch.Tensor) -> torch.Tensor:
 
 def haar_dwt2d(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1 on a CUDA tensor, :func:`haar_dwt2d_plain` on a CPU tensor."""
+    extension.refuse_autograd("use_pallas_dwt", x)
     if x.device.type == "cpu":
         return haar_dwt2d_plain(x)
     _check(x)

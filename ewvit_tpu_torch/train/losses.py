@@ -11,8 +11,9 @@
   next 50%), with an optional ``valid_mask`` that keeps pad rows out of
   both terms.
 
-Everything is computed in fp32 whatever the model's compute dtype. Forward
-only so far: the train step arrives with the train slice.
+Everything is computed in fp32 whatever the model's compute dtype. The eval
+step (``evaluation.py``) and the train step (``train/steps.py``, which
+backpropagates through them) use the same functions.
 """
 
 from __future__ import annotations

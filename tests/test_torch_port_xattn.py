@@ -154,6 +154,7 @@ def test_packed_entry_rejects_bad_shapes():
     mats, smalls = m.eval()._xattn_weights()
     assert mats.shape == (2, 256, 1024) and smalls.shape == (2, 3, 256)
     x = torch.randn(3, 1, 256)
-    so, fo = m(x, x)
+    with torch.no_grad():
+        so, fo = m(x, x)
     ref = fused_bidirectional_cross_attention(x[:, 0], x[:, 0], mats, smalls, heads=4)
     torch.testing.assert_close(so[:, 0], ref[0], atol=0, rtol=0)
