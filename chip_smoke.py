@@ -61,7 +61,29 @@ Phases (any failure raises and the exit code is nonzero):
               1e-5), the eval-mode forward with grad enabled that must
               raise, 2 steps each of sfe_mwt and sfe_only, and the step
               time, frames trained per second and peak memory;
-7. report  -- one JSON line describing every kernel, then the final line
+7. fit     -- the training run (train/loop.py Trainer.fit) at full width
+              with all four kernel flags on a synthetic FF++ tree written
+              into a temporary directory (data/synthetic.py: 40-frame
+              320x256 PNG videos, 4 train, 4 val and 2 test pairs, the test
+              pairs with all five methods), decoded on the host with cv2
+              (the decode probe found cv2 on the GPU machine; without it the
+              phase fails): 2 epochs, batch 2, accum_steps 2 (super-batches
+              [4, 40, 224, 224, 3]), frame_chunk 32, remat, async
+              checkpoints every epoch. It checks per epoch the K1 launches
+              of the train steps (24 per update of 2 micro-batches) and of
+              the val epoch, that K2, K3 and K4 launch only in val epochs,
+              exactly the derived counts, and that each kept module folds or
+              packs once per val epoch; the 18 frozen tensors bit for bit;
+              best_model.pth and checkpoint_{1,2}.pth with no swap debris;
+              best_model.pth served through InferenceEngine.from_checkpoint
+              within OUT_TOL_BF16 of that epoch's val predictions; a resume
+              from checkpoint_1.pth that runs epoch 2 only. It prints the ms
+              per train step inside the Trainer, the val ms per clip, the
+              host decode rate, the time the epoch loop is blocked by an
+              async and by a sync save, and peak memory; then runs the two
+              CLIs (cli.train, 1 epoch, and cli.eval on its best_model.pth,
+              --tiny) on the same tree, and removes the tree;
+8. report  -- one JSON line describing every kernel, then the final line
               {"ok": true, "device": {...}}.
 
 Without a CUDA device, or run outside the repository, it exits nonzero and
@@ -73,6 +95,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -86,8 +109,17 @@ from ewvit_tpu_torch import InferenceEngine, ModelConfig, build_detector, video_
 from ewvit_tpu_torch.configs import B0_BLOCKS
 from ewvit_tpu_torch.device import resolve_device
 from ewvit_tpu_torch.checkpoint import load_model
+from ewvit_tpu_torch.cli import eval as cli_eval
+from ewvit_tpu_torch.cli import train as cli_train
+from ewvit_tpu_torch.configs import TrainConfig
+from ewvit_tpu_torch.data import native
+from ewvit_tpu_torch.data.datasets import FaceForensicsDataset
+from ewvit_tpu_torch.data.pipeline import BatchLoader
+from ewvit_tpu_torch.data.synthetic import write_ff_tree
+from ewvit_tpu_torch.data.transforms import FaceAligner, FrameTransform, cv2_module
 from ewvit_tpu_torch.evaluation import evaluate
 from ewvit_tpu_torch.models.detector import random_detector
+from ewvit_tpu_torch.models.efficientnet import DepthwiseSE
 from ewvit_tpu_torch.models.kept import KeepsWeights
 from ewvit_tpu_torch.ops import extension
 from ewvit_tpu_torch.ops.dw_se import (
@@ -115,6 +147,9 @@ from ewvit_tpu_torch.ops.mwt_tail import (
     pack_tail,
 )
 from ewvit_tpu_torch.ops.preprocess import preprocess_batch
+from ewvit_tpu_torch.train import loop as train_loop
+from ewvit_tpu_torch.train.checkpoint import CheckpointManager
+from ewvit_tpu_torch.train.loop import Trainer
 from ewvit_tpu_torch.train.optimizer import detector_frozen_names, make_optimizer
 from ewvit_tpu_torch.train.steps import train_step
 from ewvit_tpu_torch.ops.winograd import (
@@ -1120,6 +1155,290 @@ def phase_train(state, cfg, clips, chunk=32):
     return measured
 
 
+# ------------------------------------------------------------------ fit
+
+FIT_PAIRS = dict(train=4, val=4, test=2)
+FIT_FRAMES, FIT_HEIGHT, FIT_WIDTH = 40, 256, 320
+FIT_BATCH, FIT_ACCUM, FIT_CHUNK = 2, 2, 32
+# launched and folded only by val epochs: train mode routes around K2-K4
+VAL_ONLY = ("dw_bn_silu_mean", "fused_multiscale_winograd",
+            "fused_bidirectional_cross_attention", "dw_se_fold", "winograd_u_fold",
+            "xattn_pack")
+
+
+def decode_route():
+    """The host decoder of the fit phase, fixed by the decode probe on the
+    GPU machine (cv2 importable; no libpng or libjpeg headers, so the native
+    frameio library does not build there): cv2, as the JAX CLI decodes."""
+    cv2 = cv2_module()
+    if cv2 is None:
+        fail("cv2 is not importable: the fit phase decodes frames with cv2, which the "
+             "decode probe found on the GPU machine")
+    print(f"[fit] host decode: cv2 {cv2.__version__} (native frameio library builds: "
+          f"{native.available()})")
+
+
+class StepTimer:
+    """Stands in for train/loop.py's ``train_step``: CUDA events around each
+    call (as phase_train times the bare step) and its micro-batch count."""
+
+    def __init__(self):
+        self.steps = []
+
+    def __call__(self, *a, **kw):
+        begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        begin.record()
+        out = train_step(*a, **kw)
+        end.record()
+        self.steps.append((kw["accum_steps"], begin, end))
+        return out
+
+
+class Counted:
+    """Wraps a Trainer's epoch methods: each train and val epoch's launch
+    counts (zeroed just before it), host seconds, result and, for a train
+    epoch, the micro-batches of each of its updates."""
+
+    def __init__(self, trainer, timer):
+        self.epochs, self.timer = [], timer
+        trainer.train_epoch = self.wrap("train", trainer.train_epoch)
+        trainer.eval_epoch = self.wrap("val", trainer.eval_epoch)
+
+    def wrap(self, kind, fn):
+        def run(*a, **kw):
+            first = len(self.timer.steps)
+            extension.reset_launches()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            self.epochs.append(dict(kind=kind, launches=dict(extension.LAUNCHES),
+                                    seconds=time.perf_counter() - t, result=out,
+                                    micro=[m for m, _, _ in self.timer.steps[first:]]))
+            return out
+        return run
+
+
+class SaveTimer:
+    """Host seconds of each call of a CheckpointManager's ``_save``: the time
+    the epoch loop is blocked by a save."""
+
+    def __init__(self, mgr):
+        self.seconds, self._save = [], mgr._save
+        mgr._save = self
+
+    def __call__(self, *a, **kw):
+        t = time.perf_counter()
+        out = self._save(*a, **kw)
+        self.seconds.append(time.perf_counter() - t)
+        return out
+
+
+def fit_data(root, seed=0):
+    """The FF++ train and val sets of the tree, at 224 px from 40 frames."""
+    tf = FrameTransform(aligner=FaceAligner(detector="none"))
+    kw = dict(frame_count=FIT_FRAMES, transform=tf, seed=seed)
+    train = FaceForensicsDataset(root, split="train", **kw)
+    val = FaceForensicsDataset(root, split="val", **kw)
+    return (train, val,
+            BatchLoader(train, FIT_BATCH, shuffle=True, drop_last=True, seed=seed),
+            BatchLoader(val, FIT_BATCH, pad_last=True, seed=seed))
+
+
+def fit_trainer(cfg, state, ckpt_dir, train_ds, steps_per_epoch):
+    tcfg = TrainConfig(batch_size=FIT_BATCH, epochs=2, lr=TRAIN_LR, accum_steps=FIT_ACCUM,
+                       frame_count=FIT_FRAMES, seed=0)
+    return Trainer(cfg, tcfg, pos_weight=train_ds.fake_ratio,
+                   steps_per_epoch=steps_per_epoch, checkpoint_dir=ckpt_dir, remat=True,
+                   save_every=1, async_ckpt=True, device="cuda",
+                   model=train_model(cfg, state))
+
+
+def check_fit_epochs(cfg, model, counted, val_clips):
+    """Every train and val epoch's launches and folds against the derived
+    counts: a train epoch launches K1 ``k1_per_step`` times per update and
+    nothing of VAL_ONLY; a val epoch launches K1 ``levels`` times, K2 once
+    per stride-1 SE block of DAMA's V2-S, K3 and K4 once, per 64-row chunk,
+    and folds or packs each kept module once."""
+    dwse = sum(1 for m in model.dama.modules() if isinstance(m, DepthwiseSE) and m.fuse_dwse)
+    per_chunk = dict(haar_dwt2d=cfg.levels, dw_bn_silu_mean=dwse,
+                     fused_multiscale_winograd=1, fused_bidirectional_cross_attention=1)
+    val_chunks = -(-val_clips // FIT_BATCH) * -(-FIT_FRAMES // FIT_CHUNK)
+    for i, ep in enumerate(counted.epochs):
+        if ep["kind"] == "train":
+            want = {k: 0 for k in VAL_ONLY}
+            want["haar_dwt2d"] = sum(k1_per_step(cfg, "dynamic", FIT_FRAMES, m, FIT_CHUNK)
+                                     for m in ep["micro"])
+            if not ep["micro"]:
+                fail(f"fit: train epoch {i // 2 + 1} took no step")
+        else:
+            want = {k: v * val_chunks for k, v in per_chunk.items()}
+            want.update(dw_se_fold=dwse, winograd_u_fold=1, xattn_pack=1)
+        want["fused_bidirectional_cross_attention_general"] = 0
+        got = ep["launches"]
+        bad = {k: (got[k], v) for k, v in want.items() if got[k] != v}
+        if bad:
+            fail(f"fit, {ep['kind']} epoch {i // 2 + 1}: launches (counted, derived) {bad}")
+        print(f"[fit] {ep['kind']} epoch {i // 2 + 1}: launches and folds as derived {want}"
+              + (f", updates of {ep['micro']} micro-batches" if ep["micro"] else "")
+              + f"; {ep['seconds']:.3f} s")
+
+
+def decode_rate(loader, frames):
+    """Host frames decoded per second by ``loader`` (its worker threads, no
+    model)."""
+    t = time.perf_counter()
+    n = sum(len(labels) for _, labels in loader)
+    return n * frames / (time.perf_counter() - t)
+
+
+def serve_best(ckpt_dir, cfg, val_loader, counted):
+    """best_model.pth through InferenceEngine.from_checkpoint on the val set,
+    held to the val predictions of the epoch it was saved at."""
+    path = os.path.join(ckpt_dir, "best_model.pth")
+    epoch = torch.load(path, map_location="cpu", weights_only=True)["epoch"]
+    engine = InferenceEngine.from_checkpoint(path, cfg, mode="dynamic", frame_chunk=FIT_CHUNK,
+                                             device="cuda")
+    remaining, probs = val_loader.true_len(), []
+    for clips, _ in val_loader:
+        n = min(len(clips), remaining)
+        remaining -= n
+        probs.extend(engine.predict(clips)[:n].tolist())
+    want = [ep for ep in counted.epochs if ep["kind"] == "val"][epoch]["result"].metrics["preds"]
+    atol = OUT_TOL_BF16[1][0]
+    err = float(np.abs(np.asarray(probs) - np.asarray(want)).max())
+    if len(probs) != len(want) or err > atol:
+        fail(f"best_model.pth (epoch {epoch + 1}) served {probs}, its val epoch predicted {want}")
+    print(f"[fit] best_model.pth (epoch {epoch + 1}) through from_checkpoint: {len(probs)} val "
+          f"probabilities within {err:.3e} of that epoch's val predictions (atol {atol})")
+    del engine
+    torch.cuda.empty_cache()
+
+
+def run_clis(root, tmp):
+    """cli.train (1 epoch, --tiny) and cli.eval on its best_model.pth."""
+    out, ev = os.path.join(tmp, "cli_train"), os.path.join(tmp, "cli_eval")
+    common = ["--root", root, "--tiny", "--frame-count", "8", "--batch-size", "2"]
+    t = time.perf_counter()
+    result = cli_train.main(common + ["--output", out, "--epochs", "1"])
+    best = os.path.join(out, "checkpoints", "best_model.pth")
+    if not os.path.exists(best):
+        fail(f"cli.train wrote no best_model.pth (best val AUC {result['best_val_auc']})")
+    exported = cli_eval.main(common + ["--model-path", best, "--output", ev,
+                                       "--dataset", "ff++"])
+    for name in ("eval_results.csv", "confusion_matrices.json"):
+        if not os.path.exists(os.path.join(ev, name)):
+            fail(f"cli.eval wrote no {name}")
+    with open(os.path.join(ev, "eval_results.csv")) as f:
+        rows = f.read().splitlines()
+    if len(rows) != 7 or [r["name"] for r in exported["rows"]] != ["overall"] + cli_eval.FF_METHODS:
+        fail(f"cli.eval rows {rows}")
+    for r in exported["rows"]:
+        if not all(np.isfinite(v) for k, v in r.items() if k != "name"):
+            fail(f"cli.eval: a metric is not finite in {r}")
+    print(f"[fit] cli.train (1 epoch, --tiny) and cli.eval (--dataset ff++) in "
+          f"{time.perf_counter() - t:.1f} s; eval_results.csv: {rows}")
+
+
+def phase_fit(state, cfg, bare_step_ms):
+    """Trainer.fit at full width on a synthetic tree, with its checks; returns
+    the measurements."""
+    cfg = cfg.replace(frame_chunk=FIT_CHUNK)      # the Trainer chunks as its config says
+    decode_route()
+    tmp = tempfile.mkdtemp(prefix="ewvit_fit_")
+    try:
+        root = os.path.join(tmp, "data")
+        t = time.perf_counter()
+        write_ff_tree(root, pairs=FIT_PAIRS, frames=FIT_FRAMES, height=FIT_HEIGHT,
+                      width=FIT_WIDTH, seed=0)
+        print(f"[fit] wrote a {FIT_PAIRS} pair FF++ tree of {FIT_FRAMES}-frame "
+              f"{FIT_WIDTH}x{FIT_HEIGHT} PNG videos in {time.perf_counter() - t:.1f} s")
+        train_ds, val_ds, train_loader, val_loader = fit_data(root)
+        fps = decode_rate(val_loader, FIT_FRAMES)
+        ckpt_dir = os.path.join(tmp, "checkpoints")
+        steps_per_epoch = max(1, len(train_loader) // FIT_ACCUM)
+        trainer = fit_trainer(cfg, state, ckpt_dir, train_ds, steps_per_epoch)
+        timer = StepTimer()
+        train_loop.train_step = timer
+        counted, saves = Counted(trainer, timer), SaveTimer(trainer.ckpt)
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        try:
+            result = trainer.fit(train_loader, val_loader, train_dataset=train_ds,
+                                 val_dataset=val_ds)
+        finally:
+            train_loop.train_step = train_step
+        fit_s = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated()
+        check_fit_epochs(cfg, trainer.model, counted, len(val_ds))
+        for n in detector_frozen_names():
+            if not torch.equal(trainer.model.state_dict()[n], state[n]):
+                fail(f"fit: frozen tensor {n} changed")
+        files = sorted(os.listdir(ckpt_dir))
+        if files != ["best_model.pth", "checkpoint_1.pth", "checkpoint_2.pth"]:
+            fail(f"fit: checkpoint files {files}")
+        step_ms = [b.elapsed_time(e) for _, b, e in timer.steps]
+        vals = [ep for ep in counted.epochs if ep["kind"] == "val"]
+        val_ms_clip = [ep["seconds"] * 1e3 / len(val_ds) for ep in vals]
+
+        # the epoch loop blocked by a save: the async saves above, and sync
+        # saves of the same model now
+        sync = CheckpointManager(os.path.join(tmp, "sync"))
+        sync_s = []
+        for epoch in range(2):
+            t = time.perf_counter()
+            sync.save_epoch(trainer.model, trainer.optimizer, epoch, result["best_val_auc"])
+            sync_s.append(time.perf_counter() - t)
+        ckpt_mib = os.path.getsize(os.path.join(ckpt_dir, "checkpoint_1.pth")) / 2**20
+        # one more train epoch (epoch 2's set, decode included) under the
+        # profiler: how busy the device is inside the Trainer's loop
+        t = time.perf_counter()
+        busy_ms, device_ops, top = profile_step(lambda: trainer.train_epoch(train_loader, 1))
+        profiled_ms = (time.perf_counter() - t) * 1e3
+        history = [{"epoch": h["epoch"], "train_loss": h["train"]["loss"],
+                    "val_loss": h["val"]["loss"], "val_auc": h["val"]["auc"]}
+                   for h in result["history"]]
+        del trainer
+        torch.cuda.empty_cache()
+
+        serve_best(ckpt_dir, cfg, val_loader, counted)
+
+        train_ds, val_ds, train_loader, val_loader = fit_data(root)
+        resumed = fit_trainer(cfg, state, os.path.join(tmp, "resumed"), train_ds,
+                              steps_per_epoch)
+        resumed.resume(os.path.join(ckpt_dir, "checkpoint_1.pth"))
+        again = resumed.fit(train_loader, val_loader, train_dataset=train_ds,
+                            val_dataset=val_ds)
+        if [h["epoch"] for h in again["history"]] != [1]:
+            fail(f"resume from checkpoint_1.pth ran epochs {[h['epoch'] for h in again['history']]}")
+        print("[fit] resume from checkpoint_1.pth: start epoch 2, ran epoch 2 only")
+        del resumed
+        torch.cuda.empty_cache()
+
+        run_clis(root, tmp)
+        measured = dict(
+            history=history, fit_s=fit_s, ms_per_step=float(np.mean(step_ms)),
+            ms_per_step_each=step_ms, bare_train_step_ms=bare_step_ms,
+            val_ms_per_clip=val_ms_clip, decode_frames_per_s=fps,
+            async_save_blocked_s=saves.seconds, sync_save_blocked_s=sync_s,
+            checkpoint_mib=ckpt_mib, peak_bytes=peak,
+            profiled_train_epoch=dict(wall_ms=profiled_ms, device_busy_ms=busy_ms,
+                                      device_ops=device_ops, top_device_ops=top))
+        print(f"[fit] Trainer.fit, 2 epochs at full width: {fit_s:.1f} s; ms per train step "
+              f"inside the Trainer {measured['ms_per_step']:.3f} "
+              f"({[round(v, 3) for v in step_ms]}) against the bare train_step's "
+              f"{bare_step_ms:.3f}; val ms per clip {[round(v, 3) for v in val_ms_clip]} "
+              f"({len(val_ds)} clips, epoch 1 then 2); host decode {fps:.1f} frames/s "
+              f"(cv2, 4 threads); epoch loop blocked per save: async "
+              f"{[round(v, 3) for v in saves.seconds]} s, sync "
+              f"{[round(v, 3) for v in sync_s]} s ({ckpt_mib:.1f} MiB a checkpoint); "
+              f"peak {peak / 2**30:.3f} GiB allocated; one more train epoch under the "
+              f"profiler: {profiled_ms:.1f} ms wall (profiler on), device busy "
+              f"{busy_ms:.3f} ms in {device_ops} operations; history {history}")
+        return measured
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1137,6 +1456,8 @@ def main() -> int:
     trained = phase_train(state, ModelConfig().replace(**TRAIN_FLAGS),
                           rng.integers(0, 256, (4, 40, 224, 224, 3), dtype=np.uint8))
     print(f"[train] {json.dumps(trained)}")
+    fitted = phase_fit(state, ModelConfig().replace(**TRAIN_FLAGS), trained["ms_per_step"])
+    print(f"[fit] {json.dumps(fitted)}")
     launches = {name: run["launches"] for name, run in served.items()}
     for r in report:
         r["launches_by_path"] = {p: n[r["name"]] for p, n in launches.items()}

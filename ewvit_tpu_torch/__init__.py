@@ -8,9 +8,12 @@ DAMA cross-attention; ``csrc/``), evaluates it (``evaluation.evaluate``:
 the eval losses and the metric suite), and trains it (``train.steps.
 train_step`` with ``train.optimizer.make_optimizer``: gradient accumulation,
 per-chunk remat, bf16 autocast; K1 runs in the training forward, K2-K4 are
-inference-only as in the JAX package). Imports torch and numpy only,
-never JAX or the ewvit_tpu package. Entry points run on the GPU unless the
-caller passes ``device="cpu"``.
+inference-only as in the JAX package), and runs the training run
+(``train.loop.Trainer`` over ``data/``'s datasets and loaders, with
+``train.checkpoint``'s checkpoints; ``python -m ewvit_tpu_torch.cli.train``
+and ``.cli.eval``). Imports torch and numpy only (cv2 where a frame is
+decoded), never JAX or the ewvit_tpu package. Entry points run on the GPU
+unless the caller passes ``device="cpu"``.
 """
 
 from ewvit_tpu_torch.configs import ArchConfig, ModelConfig

@@ -1,0 +1,144 @@
+"""Evaluate a trained detector on one GPU: ``python -m ewvit_tpu_torch.cli.eval``.
+
+The flags and flow of the JAX package's ``eval.py`` (the reference's eval.py
+:30-58, :210-433): the overall pass, then the five-method FF++ loop
+(:164-171), or Celeb-DF, or the diffusion per-method loop (all, DDPM, DDIM,
+LDM); ``eval_results.csv`` and ``confusion_matrices.json`` in ``--output``
+(``_export``). The model comes from a ``.pth``/``.pt`` through
+``checkpoint.load_model`` and is evaluated by ``evaluation.evaluate``, which
+casts it to the compute dtype for inference. ``--device`` (default
+``cuda``) is the port's own; ``--s2d-stem`` is accepted and ignored;
+``--mesh`` and ``--visualize`` are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+import argparse
+import csv
+import json
+import os
+import random
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+
+FF_METHODS = ["Deepfakes", "Face2Face", "FaceSwap", "NeuralTextures", "FaceShifter"]
+DIFFUSION_METHODS = ["DDPM", "DDIM", "LDM"]
+
+
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(description="Evaluate Deepfake Detector (GPU)")
+    p.add_argument("--root", "--r", type=str, default="/path/to/dataset")
+    p.add_argument("--model-path", "--mp", type=str, required=True)
+    p.add_argument("--output", "--o", type=str, default="./output/eval")
+    p.add_argument("--batch-size", "--bs", type=int, default=8)
+    p.add_argument("--dim", "--d", type=int, default=128)
+    p.add_argument("--frame-count", "--fc", type=int, default=300)
+    p.add_argument("--dataset", "--ds", type=str, default="ff++",
+                   choices=["ff++", "celeb-df", "diffusion"])
+    p.add_argument("--test-list", "--tl", type=str,
+                   default="Celeb-DF-v2/List_of_testing_videos.txt")
+    p.add_argument("--ablation", "-a", type=str, default="dynamic",
+                   choices=["dynamic", "sfe_only", "sfe_mwt"])
+    p.add_argument("--visualize", "--v", action="store_true",
+                   help="not ported yet (matplotlib evaluation plots)")
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--frame-chunk", type=int, default=16)
+    p.add_argument("--pos-mode", type=str, default="reference",
+                   choices=["reference", "tile", "row0"],
+                   help="must match the training config of the checkpoint")
+    p.add_argument("--s2d-stem", action="store_true",
+                   help="accepted for the JAX CLI's sake; the port has one stem")
+    p.add_argument("--mesh", "--multi-chip", action="store_true",
+                   help="not ported yet (data-parallel eval)")
+    p.add_argument("--num-workers", type=int, default=4)
+    p.add_argument("--tiny", action="store_true",
+                   help="ModelConfig.tiny() (64px): smoke runs only")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="'cuda' (default) or 'cpu'")
+    return p.parse_args(argv)
+
+
+def _row(name: str, m: Dict) -> Dict:
+    return {
+        "name": name, "loss": m.get("loss"), "accuracy": m["accuracy"],
+        "auc": m["auc"], "eer": m["eer"], "ap": m["ap"],
+        "precision": m["precision"], "recall": m["recall"], "f1": m["f1"],
+    }
+
+
+def _export(output: str, rows: List[Dict], confusions: Dict) -> None:
+    os.makedirs(output, exist_ok=True)
+    csv_path = os.path.join(output, "eval_results.csv")
+    with open(csv_path, "w", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=list(rows[0].keys()))
+        w.writeheader()
+        w.writerows(rows)
+    with open(os.path.join(output, "confusion_matrices.json"), "w") as f:
+        json.dump(confusions, f, indent=2)
+    print(f"Saved results to {csv_path}")
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Dict:
+    """Returns what was exported: ``{"rows": [...], "confusions": {...}}``."""
+    args = parse_args(argv)
+    if args.mesh:
+        raise NotImplementedError("--mesh (data-parallel eval) is not yet ported")
+    if args.visualize:
+        raise NotImplementedError("--visualize (EvalVisualization) is not yet ported")
+    random.seed(args.seed)
+    np.random.seed(args.seed)
+
+    from ewvit_tpu_torch.configs import ModelConfig
+    from ewvit_tpu_torch.data.transforms import FrameTransform
+    from ewvit_tpu_torch.device import resolve_device
+    from ewvit_tpu_torch.evaluation import evaluate, get_dataloader, load_model, print_metrics
+
+    device = resolve_device(args.device)
+    if args.tiny:
+        cfg = ModelConfig.tiny().replace(pos_mode=args.pos_mode)
+    else:
+        cfg = ModelConfig(dama_dim=args.dim, frame_chunk=args.frame_chunk,
+                          pos_mode=args.pos_mode)
+    size = cfg.arch.image_size
+    transform = FrameTransform(resize=max(1, round(size * 450 / 224)), crop=size)
+    model = load_model(args.model_path, cfg, device=device)
+    ev = dict(mode=args.ablation, frame_chunk=cfg.frame_chunk, device=device)
+    loader_kw = dict(batch_size=args.batch_size, num_workers=args.num_workers,
+                     transform=transform)
+
+    rows, confusions = [], {}
+
+    def run(name: str, title: str, loader) -> None:
+        m = evaluate(model, loader, **ev)
+        print_metrics(title, m)
+        rows.append(_row(name, m))
+        confusions[name] = m["confusion_matrix"]
+
+    if args.dataset == "ff++":
+        loader, _ = get_dataloader(args.root, "ff++", frame_count=args.frame_count,
+                                   **loader_kw)
+        run("overall", "FF++ overall", loader)
+        for method in FF_METHODS:  # per-method loop (eval.py:245-261)
+            loader, _ = get_dataloader(args.root, "ff++", frame_count=args.frame_count,
+                                       single_method=method, **loader_kw)
+            run(method, method, loader)
+    elif args.dataset == "celeb-df":
+        test_list = (args.test_list if os.path.isabs(args.test_list)
+                     else os.path.join(args.root, args.test_list))
+        loader, _ = get_dataloader(args.root, "celeb-df", frame_count=args.frame_count,
+                                   test_list=test_list, **loader_kw)
+        run("celeb-df", "Celeb-DF-v2", loader)
+    else:  # diffusion: all, then DDPM, DDIM, LDM (eval.py:366-433)
+        for method in [None] + DIFFUSION_METHODS:
+            loader, _ = get_dataloader(args.root, "diffusion", single_method=method,
+                                       **loader_kw)
+            name = method or "all"
+            run(name, f"diffusion/{name}", loader)
+
+    _export(args.output, rows, confusions)
+    return {"rows": rows, "confusions": confusions}
+
+
+if __name__ == "__main__":
+    main()

@@ -5,7 +5,7 @@ the backbone block tables of ``ewvit_tpu/models/efficientnet.py``
 (``BlockCfg``, ``B0_BLOCKS``, ``B0_MICRO``, ``V2S_BLOCKS``, ``V2S_MICRO``,
 ``BackboneSpec``). The port imports nothing of the JAX package, so the values
 are repeated here and the CPU tests hold the two copies equal.
-``TrainConfig`` waits for the ``Trainer`` (ROADMAP).
+``TrainConfig`` copies ``ewvit_tpu/configs.py:190-209``.
 """
 
 from __future__ import annotations
@@ -169,3 +169,26 @@ class ModelConfig:
         return cls(arch=arch, dama_dim=16, num_heads=2, levels=2,
                    frame_chunk=2, compute_dtype="float32",
                    backbone_spec=(B0_MICRO, V2S_MICRO))
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training hyperparameters (defaults = reference train.py:27-53, 270-274)."""
+
+    batch_size: int = 8
+    epochs: int = 30
+    lr: float = 1e-4
+    weight_decay: float = 1e-4
+    lr_min: float = 1e-7          # cosine eta_min (train.py:274)
+    frame_count: int = 300
+    accum_steps: int = 2
+    seed: int = 42
+    # orthogonality-loss ramp (train.py:76-86)
+    orth_start_frac: float = 0.2
+    orth_full_frac: float = 0.5   # ramp length as a fraction of max_epochs
+    # curriculum (data_loader.py:240-262)
+    curriculum_early_frac: float = 0.3
+    curriculum_late_frac: float = 0.7
+    # backbone freezing: first N parameter tensors in torch named_parameters
+    # order are frozen (sfe.py:115-119)
+    frozen_backbone_params: int = 6

@@ -1,0 +1,71 @@
+"""Synthetic frame trees in the datasets' layouts, for tests and smoke runs.
+
+:func:`write_ff_tree` writes a FaceForensics++ tree as ``FaceForensicsDataset``
+reads it (``splits/{train,val,test}.json``, ``frames/original/{id}``,
+``frames/{method}/{target}_{source}``) with seeded frames: a smooth random
+image per video, shifted a little from frame to frame, plus noise, saved as
+PNG with cv2. Pair ``j`` of the train and val splits has the forgeries of
+methods ``j`` and ``j + 1`` (mod 5), so the balancing chooses; every test
+pair has all five.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Dict, List, Sequence
+
+import numpy as np
+
+from ewvit_tpu_torch.data.datasets import FF_METHODS
+from ewvit_tpu_torch.data.transforms import cv2_module
+
+
+def _video(rng: np.random.Generator, frames: int, height: int, width: int) -> np.ndarray:
+    cv2 = cv2_module()
+    base = cv2.resize(rng.integers(0, 256, (max(2, height // 16), max(2, width // 16), 3),
+                                   dtype=np.uint8), (width + frames, height),
+                      interpolation=cv2.INTER_LINEAR)
+    noise = rng.integers(-8, 9, (frames, height, width, 3))
+    clip = np.stack([base[:, t:t + width] for t in range(frames)]).astype(np.int64)
+    return np.clip(clip + noise, 0, 255).astype(np.uint8)
+
+
+def _write(directory: str, clip: np.ndarray) -> None:
+    cv2 = cv2_module()
+    os.makedirs(directory, exist_ok=True)
+    for t, frame in enumerate(clip):
+        if not cv2.imwrite(os.path.join(directory, f"{t:04d}.png"), frame):
+            raise OSError(f"could not write a frame into {directory}")
+
+
+def write_ff_tree(root: str, *, pairs: Dict[str, int], frames: int = 8, height: int = 40,
+                  width: int = 48, seed: int = 0,
+                  methods: Sequence[str] = FF_METHODS) -> Dict[str, List[List[str]]]:
+    """Write the tree under ``root`` with ``pairs[split]`` video pairs per
+    split; returns the splits' ``[target, source]`` lists."""
+    if cv2_module() is None:
+        raise RuntimeError("writing a synthetic frame tree needs cv2")
+    rng = np.random.default_rng(seed)
+    ff = os.path.join(root, "faceforensics", "ff++")
+    os.makedirs(os.path.join(ff, "splits"), exist_ok=True)
+    splits, n = {}, 0
+    for split, count in pairs.items():
+        ids = []
+        for j in range(count):
+            target, source = f"{n:03d}", f"{n + 1:03d}"
+            n += 2
+            ids.append([target, source])
+            _write(os.path.join(ff, "frames", "original", target),
+                   _video(rng, frames, height, width))
+            chosen = (methods if split == "test"
+                      else [methods[j % len(methods)], methods[(j + 1) % len(methods)]])
+            for method in chosen:
+                _write(os.path.join(ff, "frames", method, f"{target}_{source}"),
+                       _video(rng, frames, height, width))
+        with open(os.path.join(ff, "splits", f"{split}.json"), "w") as f:
+            json.dump(ids, f)
+        splits[split] = ids
+    for method in methods:      # every method's directory exists, as the dataset requires
+        os.makedirs(os.path.join(ff, "frames", method), exist_ok=True)
+    return splits

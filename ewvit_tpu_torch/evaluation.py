@@ -1,5 +1,5 @@
-"""Evaluation: checkpoint loading, the eval step and a dataset pass
-(ewvit_tpu/evaluation.py, ewvit_tpu/train/steps.py:158-186).
+"""Evaluation: checkpoint loading, the eval step, the dataset loaders and a
+dataset pass (ewvit_tpu/evaluation.py, ewvit_tpu/train/steps.py:158-186).
 
 - :func:`load_model` (from ``checkpoint.py``) builds the detector and loads
   a ``.pth``/``.pt`` checkpoint in the reference layout.
@@ -10,19 +10,31 @@
   suite of ``utils/metrics.py``; pad rows of a padded tail batch (the
   loader's ``true_len()`` or ``len(loader.dataset)``) stay out of the losses
   and the metrics.
+- :func:`get_dataloader` builds the FF++, Celeb-DF or diffusion test set
+  and its ``pad_last`` loader.
 
-The dataset loaders (``get_dataloader``) arrive with the data pipeline.
+:func:`eval_step` also runs under ``torch.autocast`` on fp32 weights (the
+``Trainer``'s val epoch); :func:`evaluate` casts the model it is given to
+the compute dtype in place, so it is for a loaded model, never for one
+that is still training.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ewvit_tpu_torch.checkpoint import load_model  # noqa: F401  (re-exported)
+from ewvit_tpu_torch.data.datasets import (
+    CelebDFDataset,
+    DiffusionDataset,
+    FaceForensicsDataset,
+)
+from ewvit_tpu_torch.data.pipeline import BatchLoader, DevicePrefetcher
+from ewvit_tpu_torch.data.transforms import FrameTransform
 from ewvit_tpu_torch.device import DeviceLike, compute_dtype, resolve_device
 from ewvit_tpu_torch.models.detector import DeepfakeDetector, check_mode, video_forward
 from ewvit_tpu_torch.ops.preprocess import preprocess_batch
@@ -48,6 +60,37 @@ def eval_step(model: DeepfakeDetector, frames: torch.Tensor, labels: torch.Tenso
             "preds": torch.sigmoid(outputs["logits"].float()).reshape(-1)}
 
 
+def true_len(loader) -> Optional[int]:
+    """The real (not padded) rows a loader yields: its ``true_len()``, else
+    ``len(loader.dataset)``, else None (no padding to trim)."""
+    if hasattr(loader, "true_len"):
+        return loader.true_len()
+    if hasattr(loader, "dataset"):
+        return len(loader.dataset)
+    return None
+
+
+def get_dataloader(root: str, dataset: str = "ff++", *, split: str = "test",
+                   batch_size: int = 8, frame_count: int = 300,
+                   single_method: Optional[str] = None, test_list: Optional[str] = None,
+                   num_workers: int = 4, transform=None) -> Tuple[BatchLoader, object]:
+    """Dataset and loader (the reference's eval.py:96-133; the JAX package's
+    evaluation.py:113). Returns (loader, dataset); the loader pads the tail
+    batch (``pad_last``) and :func:`evaluate` trims the pad rows."""
+    transform = transform if transform is not None else FrameTransform()
+    if dataset == "ff++":
+        ds = FaceForensicsDataset(root, split=split, frame_count=frame_count,
+                                  transform=transform, single_method=single_method)
+    elif dataset == "celeb-df":
+        ds = CelebDFDataset(root, split=[split], frame_count=frame_count,
+                            transform=transform, testing_file=test_list)
+    elif dataset == "diffusion":
+        ds = DiffusionDataset(root, transform=transform, single_method=single_method)
+    else:
+        raise ValueError(f"Unknown dataset '{dataset}'")
+    return BatchLoader(ds, batch_size, num_workers=num_workers, pad_last=True), ds
+
+
 def evaluate(model: DeepfakeDetector, loader, *, mode: str = "dynamic",
              frame_chunk: int = 8, device: DeviceLike = "cuda") -> Dict:
     """Metrics of ``model`` over ``loader``'s ``(clips, labels)`` batches.
@@ -62,22 +105,18 @@ def evaluate(model: DeepfakeDetector, loader, *, mode: str = "dynamic",
     dev = resolve_device(device)
     dtype = compute_dtype(model.cfg.compute_dtype)
     model = cast_for_inference(model.to(dev).eval(), dtype)
-    if hasattr(loader, "true_len"):
-        remaining = loader.true_len()
-    elif hasattr(loader, "dataset"):
-        remaining = len(loader.dataset)
-    else:
-        remaining = None
+    remaining = true_len(loader)
     orth_losses, preds, labels = [], [], []
     loss_sum, n_total = 0.0, 0
-    for clips, lbls in loader:
+    # the copy of batch N+1 overlaps batch N's forward; labels stay on the host
+    for clips, lbls in DevicePrefetcher(loader, dev):
         lbls = np.asarray(lbls)
         n = len(lbls)
         if remaining is not None:
             n = min(n, remaining)
             remaining -= n
         valid = torch.as_tensor(np.arange(len(lbls)) < n, dtype=torch.float32, device=dev)
-        x = preprocess_batch(torch.as_tensor(np.asarray(clips)).to(dev), dtype)
+        x = preprocess_batch(torch.as_tensor(clips).to(dev), dtype)
         out = eval_step(model, x, torch.as_tensor(lbls, dtype=torch.float32, device=dev),
                         valid, mode=mode, frame_chunk=frame_chunk)
         loss_sum += float(out["loss"]) * n

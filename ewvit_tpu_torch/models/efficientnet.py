@@ -142,6 +142,7 @@ class DepthwiseSE(KeepsWeights):
             if torch.is_grad_enabled():
                 extension.refuse_autograd("use_pallas_dwse", h, conv.weight, bn.weight,
                                           bn.bias)
+            h = h.to(extension.autocast_dtype(h))
             y, m = dw_bn_silu_mean_packed(h, self._dwse_weights(), self.kernel)
             return squeeze_excite(y, reduce, expand, mean=m[:, :, None, None])
         return squeeze_excite(F.silu(bn(conv(h))), reduce, expand)

@@ -195,7 +195,8 @@ class BidirectionalCrossTransformer(KeepsWeights):
         if self.fuses(space.shape[1]):
             if torch.is_grad_enabled():
                 extension.refuse_autograd("use_pallas_dama", space, freq, *self.parameters())
-            s, f = space[:, 0].contiguous(), freq[:, 0].contiguous()
+            dt = extension.autocast_dtype(space)       # one dtype for both, as K4 takes
+            s, f = space[:, 0].to(dt).contiguous(), freq[:, 0].to(dt).contiguous()
             packed = self._xattn_weights()
             if cluster_route(self.dim, self.heads):
                 so, fo = fused_bidirectional_cross_attention_packed(s, f, packed,

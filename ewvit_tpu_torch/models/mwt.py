@@ -141,7 +141,9 @@ class MWT(KeepsWeights):
         if torch.is_grad_enabled():
             extension.refuse_autograd("use_fused_mwt_tail", *highs, conv.weight, conv.bias,
                                       bn.weight, bn.bias)
-        return fused_multiscale_winograd_packed(highs, *self._tail_weights(highs[0].dtype))
+        dt = extension.autocast_dtype(highs[0])
+        highs = [h.to(dt) for h in highs]
+        return fused_multiscale_winograd_packed(highs, *self._tail_weights(dt))
 
     def forward(self, x):
         h, w = x.shape[2:]

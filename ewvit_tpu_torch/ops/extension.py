@@ -218,6 +218,18 @@ def dtype_code(t: torch.Tensor) -> int:
     return code
 
 
+def autocast_dtype(t: torch.Tensor) -> torch.dtype:
+    """The dtype a kernel takes ``t`` in: autocast's dtype where autocast is
+    on for ``t``'s device (an eval forward of fp32 weights under
+    ``torch.autocast``, as the ``Trainer``'s val epoch runs), else ``t``'s
+    own. Autocast does not reach a kernel called through ctypes, so its
+    wrapper's caller casts."""
+    dev = t.device.type
+    if t.is_floating_point() and torch.is_autocast_enabled(dev):
+        return torch.get_autocast_dtype(dev)
+    return t.dtype
+
+
 def refuse_autograd(flag: str, *tensors: torch.Tensor) -> None:
     """Raise if autograd would record a kernel on ``tensors``.
 

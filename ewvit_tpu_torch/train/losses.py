@@ -11,8 +11,10 @@
   next 50%), with an optional ``valid_mask`` that keeps pad rows out of
   both terms.
 
-Everything is computed in fp32 whatever the model's compute dtype. The eval
-step (``evaluation.py``) and the train step (``train/steps.py``, which
+Everything is computed in fp32 whatever the model's compute dtype, also
+under an outer ``torch.autocast`` (``combined_loss`` turns it off: the
+``Trainer``'s val epoch runs ``eval_step`` under autocast). The eval step
+(``evaluation.py``) and the train step (``train/steps.py``, which
 backpropagates through them) use the same functions.
 """
 
@@ -85,6 +87,11 @@ def combined_loss(outputs: Dict[str, torch.Tensor], labels, criterion: Callable,
     normaliser is the feature width only; so a mask of ``n`` ones gives the
     loss of the first ``n`` rows alone.
     """
+    with torch.autocast(outputs["logits"].device.type, enabled=False):
+        return _combined_loss(outputs, labels, criterion, epoch, max_epochs, valid_mask)
+
+
+def _combined_loss(outputs, labels, criterion, epoch, max_epochs, valid_mask):
     logits = outputs["logits"]
     labels = labels.reshape(-1, 1).float()
     space, freq = outputs.get("space"), outputs.get("freq")

@@ -80,6 +80,11 @@ class ScheduledAdam(torch.optim.Adam):
         return super().step(closure)
 
 
+def update_count(optimizer: ScheduledAdam) -> int:
+    """Updates taken so far (the first group's ``count``)."""
+    return int(optimizer.param_groups[0]["count"])
+
+
 def make_optimizer(model: nn.Module, *, lr: float = 1e-4, weight_decay: float = 1e-4,
                    epochs: int = 30, steps_per_epoch: int = 1, eta_min: float = 1e-7,
                    freeze_backbone_prefixes: bool = True) -> ScheduledAdam:
