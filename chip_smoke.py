@@ -83,7 +83,27 @@ Phases (any failure raises and the exit code is nonzero):
               async and by a sync save, and peak memory; then runs the two
               CLIs (cli.train, 1 epoch, and cli.eval on its best_model.pth,
               --tiny) on the same tree, and removes the tree;
-8. report  -- one JSON line describing every kernel, then the final line
+8. clis    -- the measuring, ablation and visualisation entry points. It
+              prints whether matplotlib imports (with it each step runs the
+              CLI's main with its plots, without it the compute half, and
+              says that no plot was drawn); cli.test.measure at full width
+              with all four kernel flags, dynamic, [1, 30] frames in a chunk
+              of 30 (exact K1-K4 launches per call, folds only at the cast),
+              then cli.test.main at its defaults (plain modules, no launch);
+              cli.bench.measure per mode with the four flags and 2 to 3
+              pairs (exact launches per call, no K4 in the sfe modes, no
+              fold or pack inside the timed chains, a finite positive
+              frames/s; each mode's JSON line); cli.calculate_gflops.main
+              for all three modes at [1, 24] frames; the ablation at --tiny
+              for 1 epoch on a synthetic FF++ tree (each mode's
+              best_model.pth loads); plot_celebdf_roc on the seeded weights
+              saved as a reference-layout .pth and a synthetic Celeb-DF tree
+              of 2 real and 2 fake 8-frame videos, video-level and
+              --per-frame (videos x frames scores); the feature maps of one
+              frame (visualize_feature_maps.collect in fp32 with the four
+              flags, exact K1-K3 launches, held to the same function on the
+              CPU within atol 1e-3); and the phase's wall time;
+9. report  -- one JSON line describing every kernel, then the final line
               {"ok": true, "device": {...}}.
 
 Without a CUDA device, or run outside the repository, it exits nonzero and
@@ -109,16 +129,22 @@ from ewvit_tpu_torch import InferenceEngine, ModelConfig, build_detector, video_
 from ewvit_tpu_torch.configs import B0_BLOCKS
 from ewvit_tpu_torch.device import resolve_device
 from ewvit_tpu_torch.checkpoint import load_model
+from ewvit_tpu_torch.cli import ablation as cli_ablation
+from ewvit_tpu_torch.cli import bench as cli_bench
+from ewvit_tpu_torch.cli import calculate_gflops as cli_calculate_gflops
 from ewvit_tpu_torch.cli import eval as cli_eval
+from ewvit_tpu_torch.cli import plot_celebdf_roc as cli_roc
+from ewvit_tpu_torch.cli import test as cli_test
 from ewvit_tpu_torch.cli import train as cli_train
+from ewvit_tpu_torch.cli import visualize_feature_maps as cli_fm
 from ewvit_tpu_torch.configs import TrainConfig
 from ewvit_tpu_torch.data import native
 from ewvit_tpu_torch.data.datasets import FaceForensicsDataset
 from ewvit_tpu_torch.data.pipeline import BatchLoader
-from ewvit_tpu_torch.data.synthetic import write_ff_tree
+from ewvit_tpu_torch.data.synthetic import write_celebdf_tree, write_ff_tree
 from ewvit_tpu_torch.data.transforms import FaceAligner, FrameTransform, cv2_module
 from ewvit_tpu_torch.evaluation import evaluate
-from ewvit_tpu_torch.models.detector import random_detector
+from ewvit_tpu_torch.models.detector import ABLATION_MODES, random_detector
 from ewvit_tpu_torch.models.efficientnet import DepthwiseSE
 from ewvit_tpu_torch.models.kept import KeepsWeights
 from ewvit_tpu_torch.ops import extension
@@ -1439,6 +1465,237 @@ def phase_fit(state, cfg, bare_step_ms):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ------------------------------------------------------------------ clis
+
+CLI_FLAGS = dict(use_pallas_dwt=True, use_pallas_dwse=True, use_pallas_dama=True,
+                 use_fused_mwt_tail=True)
+KERNELS = ("haar_dwt2d", "dw_bn_silu_mean", "fused_multiscale_winograd",
+           "fused_bidirectional_cross_attention")
+FOLDS = ("winograd_u_fold", "dw_se_fold", "xattn_pack")
+CLI_VIDEOS, CLI_FRAMES = 2, 8          # Celeb-DF: 2 real and 2 fake videos of 8 frames
+
+
+def matplotlib_probe():
+    """Whether matplotlib imports here; printed on its own line, and the
+    only place an ImportError of it is caught."""
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        have = False
+    else:
+        have = True
+    print(f"[clis] matplotlib imports: {have}")
+    return have
+
+
+def per_chunk(model, mode):
+    """Kernel launches per chunk of a flags-on eval forward in ``mode``: K1
+    per MWT level, K2 per fused depthwise block of the mode's backbone, K3
+    and K4 once where the mode has them."""
+    dwse = lambda m: sum(1 for b in m.modules()                   # noqa: E731
+                         if isinstance(b, DepthwiseSE) and b.fuse_dwse)
+    levels = model.cfg.levels
+    return {"dynamic": dict(haar_dwt2d=levels, dw_bn_silu_mean=dwse(model.dama),
+                            fused_multiscale_winograd=1, fused_bidirectional_cross_attention=1),
+            "sfe_only": dict(haar_dwt2d=0, dw_bn_silu_mean=dwse(model.sfe_cls),
+                             fused_multiscale_winograd=0, fused_bidirectional_cross_attention=0),
+            "sfe_mwt": dict(haar_dwt2d=levels, dw_bn_silu_mean=dwse(model.sfe),
+                            fused_multiscale_winograd=1,
+                            fused_bidirectional_cross_attention=0)}[mode]
+
+
+def kept_folds(model):
+    """Folds and packs of one cast_for_inference: one per kept module."""
+    return dict(dw_se_fold=sum(1 for b in model.modules()
+                               if isinstance(b, DepthwiseSE) and b.fuse_dwse),
+                winograd_u_fold=2, xattn_pack=1)
+
+
+def check_counts(what, got, want):
+    bad = {k: (got[k], v) for k, v in want.items() if got[k] != v}
+    if bad:
+        fail(f"{what}: launches (counted, derived) {bad}")
+
+
+def cli_latency(state):
+    """cli.test.measure with K1-K4 at [1, 30] frames, chunk 30: exact
+    launches per call; then cli.test.main at its defaults (plain modules,
+    no launch)."""
+    cfg = ModelConfig().replace(**CLI_FLAGS)
+    model = build_detector(cfg, device="cuda")
+    model.load_state_dict(state, strict=True)
+    want = per_chunk(model, "dynamic")
+    folds = kept_folds(model)
+    extension.reset_launches()
+    r = cli_test.measure(model, cfg, mode="dynamic", batch=1, frames=30, frame_chunk=30,
+                         runs=40, warmup=5, device="cuda")
+    n = dict(extension.LAUNCHES)
+    check_counts("cli.test.measure", n, {**{k: v * r["calls"] for k, v in want.items()},
+                                         **folds})
+    check_counts("cli.test.measure, timed chains", r["chain_launches"],
+                 {**{k: v * r["chain_calls"] for k, v in want.items()},
+                  **{k: 0 for k in FOLDS}})
+    if not (np.isfinite(r["per_call_ms"]) and r["per_call_ms"] > 0):
+        fail(f"cli.test.measure: per-call time {r['per_call_ms']}")
+    print(f"[clis] cli.test.measure, dynamic, K1-K4, [1, 30] frames, chunk 30: "
+          f"{r['per_call_ms']:.3f} ms per call, {r['frames_per_s']:.1f} frames/s, first call "
+          f"{r['first_call_s']:.3f} s; {r['calls']} calls, launches {want} per call as "
+          f"derived, folds {folds} at the cast only")
+    del model
+    torch.cuda.empty_cache()
+    extension.reset_launches()
+    plain = cli_test.main([])
+    if any(extension.LAUNCHES.values()):
+        fail(f"cli.test.main at its defaults launched {extension.LAUNCHES}")
+    print(f"[clis] cli.test.main (defaults: plain modules, no launch): "
+          f"{plain['per_call_ms']:.3f} ms per call, {plain['frames_per_s']:.1f} frames/s")
+    return dict(kernels=r, plain=plain, launches=n)
+
+
+def cli_throughput():
+    """cli.bench.measure per mode with K1-K4, 2 to 3 pairs: exact launches
+    per call, no K4 in the sfe modes, no fold or pack inside the timed
+    chains."""
+    cfg = ModelConfig().replace(**CLI_FLAGS)
+    shapes = build_detector(cfg, device="cuda")
+    chunks = -(-cli_bench.FRAMES // cli_bench.FRAME_CHUNK)
+    out, launches = {}, {}
+    for mode in ABLATION_MODES:
+        want = {k: v * chunks for k, v in per_chunk(shapes, mode).items()}
+        extension.reset_launches()
+        r = cli_bench.measure(cfg, mode, init_pairs=2, max_pairs=3, device="cuda")
+        n = launches[mode] = dict(extension.LAUNCHES)
+        if "error" in r or not (np.isfinite(r["value"]) and r["value"] > 0):
+            fail(f"cli.bench.measure {mode}: {r}")
+        check_counts(f"cli.bench.measure {mode}", n,
+                     {**{k: v * r["calls"] for k, v in want.items()}, **kept_folds(shapes)})
+        check_counts(f"cli.bench.measure {mode}, timed chains", r["chain_launches"],
+                     {**{k: v * r["chain_calls"] for k, v in want.items()},
+                      **{k: 0 for k in FOLDS}})
+        out[mode] = r
+        print(f"[clis] cli.bench {mode}, K1-K4: "
+              f"{json.dumps({k: r[k] for k in cli_bench.KEYS})}; {r['calls']} calls, "
+              f"launches {want} per call as derived, no fold in the timed chains")
+    del shapes
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def cli_gflops():
+    counted = cli_calculate_gflops.main(["--device", "cuda"])
+    for mode in ABLATION_MODES:
+        if not counted[mode]["flops"] > 0 or not counted[mode]["bytes"] > 0:
+            fail(f"cli.calculate_gflops {mode}: {counted[mode]}")
+    return counted
+
+
+def cli_ablation_run(root, out, plots):
+    """--tiny, 1 epoch, on the synthetic FF++ tree; each mode's
+    best_model.pth loads through checkpoint.load_model."""
+    argv = ["--root", root, "--output", out, "--tiny", "--epochs", "1", "--batch-size", "2",
+            "--frame-count", "8"]
+    if plots:
+        results, out_dir = cli_ablation.main(argv)
+    else:
+        results, _, _, out_dir = cli_ablation.run_ablation(cli_ablation.parse_args(argv))
+        print("[clis] ablation: plots not drawn (no matplotlib)")
+    if list(results) != cli_ablation.MODES:
+        fail(f"ablation results {list(results)}")
+    for mode in cli_ablation.MODES:
+        load_model(os.path.join(out_dir, f"{mode}_model", "best_model.pth"),
+                   ModelConfig.tiny(), device="cuda")
+    with open(os.path.join(out_dir, "metrics_comparison.csv")) as f:
+        rows = f.read().splitlines()
+    print(f"[clis] ablation --tiny, 1 epoch: the three best_model.pth load; "
+          f"metrics_comparison.csv {rows}")
+
+
+def cli_roc_run(cdf, pth, out, plots):
+    """Video-level and --per-frame scores of the .pth at full width; per
+    frame gives videos x frames scores."""
+    for per_frame in (False, True):
+        argv = ["--root", cdf, "--model-paths", f"smoke={pth}", "--output", out,
+                "--test-list", "List_of_testing_videos.txt", "--batch-size", "2",
+                "--frame-count", str(CLI_FRAMES)] + (["--per-frame"] if per_frame else [])
+        curves = (cli_roc.main(argv) if plots
+                  else cli_roc.roc_scores(cli_roc.parse_args(argv)))
+        want = 2 * CLI_VIDEOS * (CLI_FRAMES if per_frame else 1)
+        scores = curves[0][2]
+        if len(scores) != want or not np.isfinite(scores).all():
+            fail(f"plot_celebdf_roc (per_frame={per_frame}): {len(scores)} scores, "
+                 f"expected {want}")
+        print(f"[clis] plot_celebdf_roc {'--per-frame' if per_frame else 'video-level'}: "
+              f"{len(scores)} scores as expected" + ("" if plots else ", plots not drawn"))
+
+
+def cli_feature_maps(pth, image_path, out, plots):
+    """collect() in fp32 with K1-K3 on the card against the same function on
+    the CPU with the same weights (atol 1e-3), exact launches; then the CLI
+    at its defaults when matplotlib is there."""
+    cv2 = cv2_module()
+    image = cv2.cvtColor(cv2.imread(image_path), cv2.COLOR_BGR2RGB)
+    cfg = ModelConfig().replace(**CLI_FLAGS)
+    model = load_model(pth, cfg, device="cuda")
+    extension.reset_launches()
+    got = cli_fm.collect(model, cfg, image)
+    n = dict(extension.LAUNCHES)
+    want = dict(per_chunk(model, "dynamic"), fused_bidirectional_cross_attention=0)
+    want["haar_dwt2d"] *= 2                  # DAMA's MWT, then the MWT alone
+    check_counts("visualize_feature_maps.collect", n, want)
+    ref = cli_fm.collect(load_model(pth, cfg, device="cpu"), cfg, image)
+    errs = {}
+    for key in ("stem", "hf_level0", "gate_weights", "attention"):
+        errs[key] = max_err(torch.from_numpy(got[key]), torch.from_numpy(ref[key]), 1e-3, 0.0,
+                            f"feature maps {key}: card vs CPU")
+    print(f"[clis] visualize_feature_maps.collect, fp32, K1-K3 on the card ({want}) vs the "
+          f"CPU: max abs err {errs} (atol 1e-3); shapes "
+          f"{ {k: list(v.shape) for k, v in got.items()} }")
+    del model
+    torch.cuda.empty_cache()
+    if plots:
+        cli_fm.main(["--image", image_path, "--model-path", pth, "--output", out])
+        for f in ("backbone_stem.png", "mwt_hf_level0.png", "gate_weights.txt",
+                  "cross_attention.png"):
+            if not os.path.exists(os.path.join(out, f)):
+                fail(f"visualize_feature_maps wrote no {f}")
+    return errs, n
+
+
+def phase_clis(state):
+    """The measuring, ablation and visualisation entry points; returns their
+    numbers and the launch counts of the kernel-flag runs."""
+    t0 = time.perf_counter()
+    plots = matplotlib_probe()
+    latency = cli_latency(state)
+    throughput, bench_launches = cli_throughput()
+    gflops = cli_gflops()
+    tmp = tempfile.mkdtemp(prefix="ewvit_clis_")
+    try:
+        ff, cdf = os.path.join(tmp, "ff"), os.path.join(tmp, "cdf")
+        write_ff_tree(ff, pairs=dict(train=2, val=2, test=1), frames=8, height=80, width=96,
+                      seed=1)
+        cli_ablation_run(ff, os.path.join(tmp, "ablation"), plots)
+        write_celebdf_tree(cdf, videos=CLI_VIDEOS, frames=CLI_FRAMES, height=256, width=320)
+        pth = os.path.join(tmp, "detector.pth")
+        torch.save({"model_state_dict": {f"module.{k}": v.cpu() for k, v in state.items()}},
+                   pth)
+        cli_roc_run(cdf, pth, os.path.join(tmp, "roc"), plots)
+        image = os.path.join(cdf, "celebdf", "frames", "Celeb-real", "id0_000", "0000.png")
+        fm_errs, fm_launches = cli_feature_maps(pth, image, os.path.join(tmp, "fm"), plots)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    print(f"[clis] phase wall time {wall:.1f} s")
+    launches = {"test": latency["launches"], "feature_maps": fm_launches,
+                **{f"bench_{m}": n for m, n in bench_launches.items()}}
+    return dict(
+        wall_s=wall, matplotlib=plots, gflops=gflops, feature_map_errs=fm_errs,
+        launches=launches,
+        test={k: latency["kernels"][k] for k in ("per_call_ms", "frames_per_s", "calls")},
+        test_plain={k: latency["plain"][k] for k in ("per_call_ms", "frames_per_s")},
+        bench={m: {k: r[k] for k in cli_bench.KEYS} for m, r in throughput.items()})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1458,14 +1715,17 @@ def main() -> int:
     print(f"[train] {json.dumps(trained)}")
     fitted = phase_fit(state, ModelConfig().replace(**TRAIN_FLAGS), trained["ms_per_step"])
     print(f"[fit] {json.dumps(fitted)}")
+    clis = phase_clis(state)
+    print(f"[clis] {json.dumps(clis)}")
     launches = {name: run["launches"] for name, run in served.items()}
     for r in report:
         r["launches_by_path"] = {p: n[r["name"]] for p, n in launches.items()}
         r["train_launches_per_step"] = trained["launches_per_step"][r["name"]]
         if r["name"] != "conv3x3_winograd":   # K5: the kernels phase's count
             r["launches"] = launches["fused_mwt_tail"][r["name"]]
+        r["clis_launches"] = {p: n[r["name"]] for p, n in clis["launches"].items()}
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",
-            "train_launches_per_step", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "train_launches_per_step", "clis_launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "cold_ms", "general_ms", "max_active_clusters")
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [{k: r.get(k) for k in keys} for r in report]}))

@@ -11,8 +11,12 @@ per-chunk remat, bf16 autocast; K1 runs in the training forward, K2-K4 are
 inference-only as in the JAX package), and runs the training run
 (``train.loop.Trainer`` over ``data/``'s datasets and loaders, with
 ``train.checkpoint``'s checkpoints; ``python -m ewvit_tpu_torch.cli.train``
-and ``.cli.eval``). Imports torch and numpy only (cv2 where a frame is
-decoded), never JAX or the ewvit_tpu package. Entry points run on the GPU
+and ``.cli.eval``), and is measured and studied through ``.cli.test``
+(latency), ``.cli.bench`` (frames/s), ``.cli.calculate_gflops``,
+``.cli.ablation``, ``.cli.plot_celebdf_roc`` and
+``.cli.visualize_feature_maps``. Imports torch and numpy only (cv2 where a
+frame is decoded, matplotlib inside a plot), never JAX or the ewvit_tpu
+package. Entry points run on the GPU
 unless the caller passes ``device="cpu"``.
 """
 

@@ -7,8 +7,12 @@ LDM); ``eval_results.csv`` and ``confusion_matrices.json`` in ``--output``
 (``_export``). The model comes from a ``.pth``/``.pt`` through
 ``checkpoint.load_model`` and is evaluated by ``evaluation.evaluate``, which
 casts it to the compute dtype for inference. ``--device`` (default
-``cuda``) is the port's own; ``--s2d-stem`` is accepted and ignored;
-``--mesh`` and ``--visualize`` are not ported yet and raise.
+``cuda``) is the port's own; ``--s2d-stem`` is accepted and ignored.
+``--visualize`` renders ``EvalVisualization``'s five plots (needs
+matplotlib) into ``visualizations/<name>/`` per pass (``all_methods`` for
+the overall or "all" pass), or for Celeb-DF into ``--output`` itself, as
+the JAX CLI's ``_render_viz`` (eval.py:71-98, :206-216). ``--mesh`` is not
+ported yet and raises.
 """
 
 from __future__ import annotations
@@ -41,7 +45,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--ablation", "-a", type=str, default="dynamic",
                    choices=["dynamic", "sfe_only", "sfe_mwt"])
     p.add_argument("--visualize", "--v", action="store_true",
-                   help="not ported yet (matplotlib evaluation plots)")
+                   help="the five evaluation plots per pass")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--frame-chunk", type=int, default=16)
     p.add_argument("--pos-mode", type=str, default="reference",
@@ -67,6 +71,27 @@ def _row(name: str, m: Dict) -> Dict:
     }
 
 
+def _render_viz(viz_dir: str, m: Dict) -> None:
+    """The reference's five eval plots for one result dict: confusion
+    heatmap, ROC, precision-recall, prediction distribution, and the
+    orth-loss-vs-prediction scatter (per-batch orth losses expanded to one
+    point per prediction), as the JAX CLI's ``_render_viz``."""
+    from ewvit_tpu_torch.utils.visualization import EvalVisualization
+
+    viz = EvalVisualization(viz_dir)
+    viz.confusion(m["confusion_matrix"])
+    viz.roc(m["labels"], m["preds"])
+    viz.precision_recall(m["labels"], m["preds"])
+    viz.prediction_distribution(m["labels"], m["preds"])
+    if m.get("orth_losses"):
+        per_batch = np.asarray(m["orth_losses"], np.float32)
+        bs = max(1, len(m["preds"]) // len(per_batch))
+        expanded = np.repeat(per_batch, bs)[:len(m["preds"])]
+        if len(expanded) < len(m["preds"]):
+            expanded = np.pad(expanded, (0, len(m["preds"]) - len(expanded)), mode="edge")
+        viz.orth_scatter(expanded, m["preds"])
+
+
 def _export(output: str, rows: List[Dict], confusions: Dict) -> None:
     os.makedirs(output, exist_ok=True)
     csv_path = os.path.join(output, "eval_results.csv")
@@ -84,8 +109,6 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     args = parse_args(argv)
     if args.mesh:
         raise NotImplementedError("--mesh (data-parallel eval) is not yet ported")
-    if args.visualize:
-        raise NotImplementedError("--visualize (EvalVisualization) is not yet ported")
     random.seed(args.seed)
     np.random.seed(args.seed)
 
@@ -108,12 +131,14 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
                      transform=transform)
 
     rows, confusions = [], {}
+    viz_results = []      # (visualizations/<name>, result) per pass
 
     def run(name: str, title: str, loader) -> None:
         m = evaluate(model, loader, **ev)
         print_metrics(title, m)
         rows.append(_row(name, m))
         confusions[name] = m["confusion_matrix"]
+        viz_results.append(("all_methods" if name in ("overall", "all") else name, m))
 
     if args.dataset == "ff++":
         loader, _ = get_dataloader(args.root, "ff++", frame_count=args.frame_count,
@@ -137,6 +162,13 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
             run(name, f"diffusion/{name}", loader)
 
     _export(args.output, rows, confusions)
+    if args.visualize:
+        if args.dataset == "celeb-df":      # plots in the output dir itself
+            _render_viz(args.output, viz_results[0][1])
+        else:
+            for name, m in viz_results:
+                _render_viz(os.path.join(args.output, "visualizations", name), m)
+            print(f"Saved visualizations to {os.path.join(args.output, 'visualizations')}")
     return {"rows": rows, "confusions": confusions}
 
 

@@ -7,8 +7,9 @@ accumulation, the cosine lr, ``best_model.pth`` and per-epoch checkpoints in
 ``<output>/checkpoints``, ``--resume``. ``--device`` (default ``cuda``; ``cpu``
 for a smoke run with ``--tiny``) is the port's own. ``--s2d-stem`` is
 accepted and ignored (the port has one stem, ``configs.ModelConfig``);
-``--mesh`` (data parallelism) and ``--visualize`` are not ported yet and
-raise.
+``--visualize`` writes ``utils.visualization.TrainVisualization``'s plots
+and ``training_history.csv`` into ``--output`` (needs matplotlib).
+``--mesh`` (data parallelism) is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--frame-count", "--fc", type=int, default=300,
                    help="Number of frames per video")
     p.add_argument("--visualize", "--v", action="store_true",
-                   help="not ported yet (matplotlib training plots)")
+                   help="training plots and training_history.csv in --output")
     p.add_argument("--accum-steps", "--as", type=int, default=2,
                    help="Gradient accumulation steps")
     p.add_argument("--mesh", "--multi-chip", action="store_true",
@@ -71,8 +72,6 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     args = parse_args(argv)
     if args.mesh:
         raise NotImplementedError("--mesh (data parallelism) is not yet ported")
-    if args.visualize:
-        raise NotImplementedError("--visualize (TrainVisualization) is not yet ported")
     random.seed(args.seed)
     np.random.seed(args.seed)
 
@@ -82,6 +81,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     from ewvit_tpu_torch.data.transforms import FrameTransform
     from ewvit_tpu_torch.device import resolve_device
     from ewvit_tpu_torch.train.loop import Trainer
+    from ewvit_tpu_torch.utils.visualization import TrainVisualization
 
     device = resolve_device(args.device)
     os.makedirs(args.output, exist_ok=True)
@@ -117,8 +117,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                       async_ckpt=not args.sync_ckpt, device=device)
     if args.resume:
         trainer.resume(args.resume)
+    viz = TrainVisualization(args.output) if args.visualize else None
     result = trainer.fit(train_loader, val_loader, train_dataset=train_ds,
-                         val_dataset=val_ds)
+                         val_dataset=val_ds, viz=viz)
     print(f"Best val AUC: {result['best_val_auc']:.4f}")
     return result
 

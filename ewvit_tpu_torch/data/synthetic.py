@@ -7,6 +7,10 @@ image per video, shifted a little from frame to frame, plus noise, saved as
 PNG with cv2. Pair ``j`` of the train and val splits has the forgeries of
 methods ``j`` and ``j + 1`` (mod 5), so the balancing chooses; every test
 pair has all five.
+
+:func:`write_celebdf_tree` writes a Celeb-DF-v2 test set as
+``CelebDFDataset`` reads it (``celebdf/frames/{Celeb-real,Celeb-synthesis}/{id}``
+and a testing list of ``label path`` lines, 1 for real).
 """
 
 from __future__ import annotations
@@ -69,3 +73,23 @@ def write_ff_tree(root: str, *, pairs: Dict[str, int], frames: int = 8, height: 
     for method in methods:      # every method's directory exists, as the dataset requires
         os.makedirs(os.path.join(ff, "frames", method), exist_ok=True)
     return splits
+
+
+def write_celebdf_tree(root: str, *, videos: int = 2, frames: int = 3, height: int = 64,
+                       width: int = 64, seed: int = 1) -> str:
+    """Write ``videos`` real and ``videos`` fake videos under ``root`` and
+    their testing list, ``List_of_testing_videos.txt``; returns its path."""
+    if cv2_module() is None:
+        raise RuntimeError("writing a synthetic frame tree needs cv2")
+    rng = np.random.default_rng(seed)
+    lines = []
+    for kind, label in (("Celeb-real", 1), ("Celeb-synthesis", 0)):
+        for i in range(videos):
+            vid = f"id{i}_000" if label else f"id{i}_id{(i + 1) % max(2, videos)}_000"
+            _write(os.path.join(root, "celebdf", "frames", kind, vid),
+                   _video(rng, frames, height, width))
+            lines.append(f"{label} {kind}/{vid}.mp4\n")
+    path = os.path.join(root, "List_of_testing_videos.txt")
+    with open(path, "w") as f:
+        f.writelines(lines)
+    return path

@@ -4,8 +4,12 @@ V2-S EfficientViT (feature-map head) and MWT give one token each; the
 bidirectional cross-attention mixes them; a conv fusion gate and a 3-way
 softmax gate (fp32) blend {space, freq, fused}. Input is one flattened chunk
 ``[N, 3, H, W]`` (N = batch * chunk); output ``{'fused','space','freq'}``,
-each ``[N, dim]``. Module names follow the reference: ``sfe``, ``mwt``,
-``cross_att``, ``fusion_gate.{0,1}``, ``gate_net.{2,5}``.
+each ``[N, dim]``; with ``return_intermediates`` also ``'intermediates'``:
+``space_map``, ``freq_map``, ``fused_map`` ``[N, dim, h, w]``,
+``gate_weights`` ``[N, 3]`` and ``attention`` (the cross-attention's four
+``[N, heads, q, k]`` softmax maps, plain path), as
+ewvit_tpu/models/dama.py:128-135. Module names follow the reference:
+``sfe``, ``mwt``, ``cross_att``, ``fusion_gate.{0,1}``, ``gate_net.{2,5}``.
 """
 
 from __future__ import annotations
@@ -44,14 +48,17 @@ class DAMA(nn.Module):
             nn.AdaptiveAvgPool2d(1), nn.Flatten(), nn.Linear(2 * d, d // 2),
             nn.ReLU(), nn.Dropout(0.1), nn.Linear(d // 2, 3))
 
-    def forward(self, frames) -> Dict[str, torch.Tensor]:
+    def forward(self, frames, return_intermediates: bool = False) -> Dict[str, object]:
         n, d = frames.shape[0], self.dim
         space = self.sfe(frames)                       # [N, d, h, w]
         freq = self.mwt(frames)                        # [N, d, 1, 1]
         h, w = space.shape[2:]
         s_tok = space.flatten(2).transpose(1, 2)       # [N, h*w, d]
         f_tok = freq.reshape(n, d, h * w).transpose(1, 2)
-        s_tok, f_tok = self.cross_att(s_tok, f_tok)
+        if return_intermediates:
+            s_tok, f_tok, attns = self.cross_att(s_tok, f_tok, return_attn=True)
+        else:
+            s_tok, f_tok = self.cross_att(s_tok, f_tok)
         space = s_tok.transpose(1, 2).reshape(n, d, h, w)
         freq = f_tok.transpose(1, 2).reshape(n, d, h, w)
 
@@ -60,6 +67,10 @@ class DAMA(nn.Module):
         gate = self.gate_net(concat).float().softmax(dim=-1).to(fused.dtype)
         g = gate[:, :, None, None]
         weighted = g[:, 0:1] * space + g[:, 1:2] * freq + g[:, 2:3] * fused
-        return {"fused": weighted.mean(dim=(2, 3)),
-                "space": space.mean(dim=(2, 3)),
-                "freq": freq.mean(dim=(2, 3))}
+        out = {"fused": weighted.mean(dim=(2, 3)),
+               "space": space.mean(dim=(2, 3)),
+               "freq": freq.mean(dim=(2, 3))}
+        if return_intermediates:
+            out["intermediates"] = {"space_map": space, "freq_map": freq, "fused_map": fused,
+                                    "gate_weights": gate, "attention": attns}
+        return out

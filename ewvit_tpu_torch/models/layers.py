@@ -40,7 +40,8 @@ class FeedForward(nn.Module):
 
 
 def _mha(q, k, v, heads: int):
-    """q, k, v: [B, N, inner] -> [B, N, inner]."""
+    """q, k, v: [B, N, inner] -> ([B, N, inner], the softmax attention
+    [B, heads, N, M] in the compute dtype)."""
     b, n, inner = q.shape
     dh = inner // heads
     q = q.reshape(b, n, heads, dh).transpose(1, 2)
@@ -48,7 +49,7 @@ def _mha(q, k, v, heads: int):
     v = v.reshape(b, v.shape[1], heads, dh).transpose(1, 2)
     dots = (q @ k.transpose(-1, -2)).float() * dh ** -0.5
     attn = dots.softmax(dim=-1).to(v.dtype)
-    return (attn @ v).transpose(1, 2).reshape(b, n, inner)
+    return (attn @ v).transpose(1, 2).reshape(b, n, inner), attn
 
 
 class Attention(nn.Module):
@@ -64,7 +65,7 @@ class Attention(nn.Module):
 
     def forward(self, x):
         q, k, v = self.to_qkv(x).chunk(3, dim=-1)
-        return self.to_out(_mha(q, k, v, self.heads))
+        return self.to_out(_mha(q, k, v, self.heads)[0])
 
 
 class PreNorm(nn.Module):
@@ -108,12 +109,15 @@ class CrossAttention(nn.Module):
         self.to_out = (nn.Sequential(nn.Linear(inner, dim), nn.Dropout(dropout))
                        if project_out else nn.Identity())
 
-    def forward(self, x, context=None, kv_include_self: bool = False):
+    def forward(self, x, context=None, kv_include_self: bool = False,
+                return_attn: bool = False):
         context = x if context is None else context
         if kv_include_self:
             context = torch.cat([x, context], dim=1)
         k, v = self.to_kv(context).chunk(2, dim=-1)
-        return self.to_out(_mha(self.to_q(x), k, v, self.heads))
+        out, attn = _mha(self.to_q(x), k, v, self.heads)
+        out = self.to_out(out)
+        return (out, attn) if return_attn else out
 
 
 class BidirectionalCrossTransformer(KeepsWeights):
@@ -191,8 +195,8 @@ class BidirectionalCrossTransformer(KeepsWeights):
                 p[f"{side}{i}_bo"] = att.to_out[0].bias
         return p
 
-    def forward(self, space, freq):
-        if self.fuses(space.shape[1]):
+    def forward(self, space, freq, return_attn: bool = False):
+        if not return_attn and self.fuses(space.shape[1]):
             if torch.is_grad_enabled():
                 extension.refuse_autograd("use_pallas_dama", space, freq, *self.parameters())
             dt = extension.autocast_dtype(space)       # one dtype for both, as K4 takes
@@ -204,7 +208,11 @@ class BidirectionalCrossTransformer(KeepsWeights):
             else:
                 so, fo = fused_bidirectional_cross_attention(s, f, *packed, heads=self.heads)
             return so[:, None], fo[:, None]
+        attns = []
         for s_norm, s_att, f_norm, f_att in self.layers:
-            space = space + s_att(s_norm(space), freq, kv_include_self=True)
-            freq = freq + f_att(f_norm(freq), space, kv_include_self=True)
-        return space, freq
+            s_out, s_attn = s_att(s_norm(space), freq, kv_include_self=True, return_attn=True)
+            space = space + s_out
+            f_out, f_attn = f_att(f_norm(freq), space, kv_include_self=True, return_attn=True)
+            freq = freq + f_out
+            attns += [s_attn, f_attn]
+        return (space, freq, attns) if return_attn else (space, freq)

@@ -39,6 +39,11 @@ compute dtype or the device changes or a tensor they read (conv weight and
 bias, the four BN tensors) is replaced or edited in place
 (``models/kept.py``). (The JAX package folds U inside its jitted graph.)
 
+``forward(x, return_intermediates=True)`` returns ``(freq, {"hf_level0":
+level 0's hf_fusion output [N, dama_dim, H/2, W/2], "freq_out": freq})``, as
+ewvit_tpu/models/mwt.py:174-332 does (NHWC there); it takes the direct
+``multiscale_fusion`` conv, never K3, as the JAX gate does (:242-247).
+
 Module names follow the reference: ``hf_conv.seperate.i.{0,1}``,
 ``hf_conv.fusion.{0,1}``, ``multiscale_fusion.{0,1}``, ``freq_conv.{0,1}``,
 ``freq_pool.{1,2}``.
@@ -145,7 +150,7 @@ class MWT(KeepsWeights):
         highs = [h.to(dt) for h in highs]
         return fused_multiscale_winograd_packed(highs, *self._tail_weights(dt))
 
-    def forward(self, x):
+    def forward(self, x, return_intermediates: bool = False):
         h, w = x.shape[2:]
         target = (h // 2, w // 2)
         dwt = haar_dwt2d if self.use_pallas_dwt else haar_dwt2d_plain
@@ -157,11 +162,13 @@ class MWT(KeepsWeights):
                                    align_corners=False)
             highs.append(self.hf_conv["fusion"](self._hf_sep(hf)))
             cur = ll
-        if self.use_fused_tail and not self.training and target[0] % 2 == 0 and target[1] % 2 == 0 \
-                and target[0] // 2 >= 4:
+        if self.use_fused_tail and not self.training and not return_intermediates \
+                and target[0] % 2 == 0 and target[1] % 2 == 0 and target[0] // 2 >= 4:
             fused = self._fused_multiscale(highs)
         else:
             fused = self.multiscale_fusion(torch.cat(highs, dim=1))
         freq = self.freq_conv(fused)
-        freq = self.freq_pool(freq)
-        return freq.mean(dim=(2, 3), keepdim=True)
+        freq = self.freq_pool(freq).mean(dim=(2, 3), keepdim=True)
+        if return_intermediates:
+            return freq, {"hf_level0": highs[0], "freq_out": freq}
+        return freq

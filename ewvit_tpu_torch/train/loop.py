@@ -25,9 +25,10 @@ JAX package's ``Trainer``:
   and skips the epochs it had done.
 
 Batches reach the card through ``data.pipeline.DevicePrefetcher`` (the copy
-of super-batch N+1 overlaps step N); labels stay on the host. Not ported:
-the JAX package's ``viz=`` (``TrainVisualization``, matplotlib) and
-``mesh=`` (data parallelism).
+of super-batch N+1 overlaps step N); labels stay on the host. ``fit(viz=)``
+feeds a ``utils.visualization.TrainVisualization`` (or anything with its
+``update``/``render_all``) the JAX ``fit``'s keys each epoch and renders it
+at the end. Not ported: ``mesh=`` (data parallelism).
 """
 
 from __future__ import annotations
@@ -221,7 +222,7 @@ class Trainer:
     # ----- full fit --------------------------------------------------------
 
     def fit(self, train_loader, val_loader, *, train_dataset=None,
-            val_dataset=None) -> Dict[str, Any]:
+            val_dataset=None, viz=None) -> Dict[str, Any]:
         cfg = self.train_cfg
         history = []
         for epoch in range(self.start_epoch, cfg.epochs):
@@ -240,6 +241,13 @@ class Trainer:
                 f"val_loss={va.loss:.4f} val_auc={val_auc:.4f} "
                 f"val_acc={va.metrics.get('accuracy', float('nan')):.4f} "
                 f"lr={lr:.2e} [{tr.seconds:.1f}s+{va.seconds:.1f}s]")
+            if viz is not None:
+                viz.update(train_loss=tr.loss, train_cls_loss=tr.cls_loss,
+                           train_orth_loss=tr.orth_loss, val_loss=va.loss,
+                           train_acc=tr.metrics.get("accuracy"),
+                           train_auc=tr.metrics.get("auc"),
+                           val_acc=va.metrics.get("accuracy"), val_auc=val_auc, lr=lr,
+                           epoch_time=tr.seconds + va.seconds)
 
             if np.isfinite(val_auc) and val_auc > self.best_val_auc:
                 self.best_val_auc = float(val_auc)
@@ -252,6 +260,8 @@ class Trainer:
             history.append({"epoch": epoch, "train": dataclasses.asdict(tr),
                             "val": {k: v for k, v in va.metrics.items()
                                     if k not in ("preds", "labels", "confusion_matrix")}})
+        if viz is not None:
+            viz.render_all()
         if self.ckpt is not None:
             # drain the async saves (and surface worker errors)
             self.ckpt.wait_until_finished()

@@ -9,8 +9,12 @@ included:
   distinct score (the last row of each tie group), collinear points
   dropped, a first point at threshold ``inf``;
 - AUC is the trapezoid under that curve (``roc_auc_score``);
-- AP is the step sum ``-sum(diff(recall) * precision[:-1])`` over the
-  precision-recall curve without dropped points (``average_precision_score``);
+- :func:`precision_recall_curve` is ``sklearn.metrics.precision_recall_curve``
+  with its default ``drop_intermediate=False``: one point per distinct
+  score, in increasing score order, then the point (recall 0, precision 1);
+  recall is 1 throughout when no label is positive;
+- AP is the step sum ``-sum(diff(recall) * precision[:-1])`` over that
+  curve (``average_precision_score``);
 - EER is the fpr at ``nanargmin |fnr - fpr|`` of the ROC (the reference's
   eval.py:79-94), with that point's threshold.
 
@@ -49,14 +53,25 @@ def roc_curve(labels, scores) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     return fpr, tpr, thr
 
 
-def average_precision(labels, scores) -> float:
-    """sklearn's ``average_precision_score``: the step sum over the
-    precision-recall curve."""
-    fps, tps, _ = _clf_curve(labels, scores)
+def auc(fpr, tpr) -> float:
+    """Trapezoid area under a curve (sklearn's ``auc``)."""
+    fpr, tpr = np.asarray(fpr, np.float64), np.asarray(tpr, np.float64)
+    return float((np.diff(fpr) * (tpr[1:] + tpr[:-1]) / 2.0).sum())
+
+
+def precision_recall_curve(labels, scores) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(precision, recall, thresholds) as sklearn's ``precision_recall_curve``."""
+    fps, tps, thr = _clf_curve(labels, scores)
     ps = tps + fps
     precision = np.divide(tps, ps, out=np.zeros_like(tps), where=ps != 0)
     recall = tps / tps[-1] if tps[-1] != 0 else np.ones_like(tps)
-    precision, recall = np.r_[precision[::-1], 1.0], np.r_[recall[::-1], 0.0]
+    return np.r_[precision[::-1], 1.0], np.r_[recall[::-1], 0.0], thr[::-1]
+
+
+def average_precision(labels, scores) -> float:
+    """sklearn's ``average_precision_score``: the step sum over the
+    precision-recall curve."""
+    precision, recall, _ = precision_recall_curve(labels, scores)
     return float(max(0.0, -np.sum(np.diff(recall) * precision[:-1])))
 
 
@@ -88,8 +103,7 @@ def binary_metrics(labels: Sequence[int], scores: Sequence[float],
     if loss is not None:
         out["loss"] = float(loss)
     if len(np.unique(labels)) > 1:
-        fpr, tpr, _ = roc_curve(labels, scores)
-        out["auc"] = float((np.diff(fpr) * (tpr[1:] + tpr[:-1]) / 2.0).sum())
+        out["auc"] = auc(*roc_curve(labels, scores)[:2])
         out["eer"], out["eer_threshold"] = calculate_eer(labels, scores)
         out["ap"] = average_precision(labels, scores)
     else:

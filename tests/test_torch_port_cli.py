@@ -125,14 +125,21 @@ def test_mesh_raises(cli, tmp_path):
 
 
 def test_new_modules_import_no_jax_and_no_cv2():
-    """The training run's modules import nothing of JAX or the JAX package,
-    and cv2 only where a frame is decoded or resized (so the package imports
-    on a machine without it)."""
+    """The training run's modules and the measuring, ablation and plotting
+    entry points import nothing of JAX or the JAX package, no yaml or
+    sklearn, matplotlib only inside a plotting call and cv2 only where a
+    frame is decoded or resized (so the package imports on a machine
+    without them)."""
     code = (
         "import sys, ewvit_tpu_torch.train.loop, ewvit_tpu_torch.cli.train, "
-        "ewvit_tpu_torch.cli.eval, ewvit_tpu_torch.data, ewvit_tpu_torch.data.synthetic\n"
+        "ewvit_tpu_torch.cli.eval, ewvit_tpu_torch.data, ewvit_tpu_torch.data.synthetic, "
+        "ewvit_tpu_torch.cli.test, ewvit_tpu_torch.cli.bench, "
+        "ewvit_tpu_torch.cli.calculate_gflops, ewvit_tpu_torch.cli.ablation, "
+        "ewvit_tpu_torch.cli.plot_celebdf_roc, ewvit_tpu_torch.cli.visualize_feature_maps, "
+        "ewvit_tpu_torch.utils.visualization, ewvit_tpu_torch.utils.metrics\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'ewvit_tpu', 'yaml', 'cv2')]\n"
+        "('jax', 'jaxlib', 'flax', 'ewvit_tpu', 'yaml', 'cv2', 'matplotlib', 'sklearn', "
+        "'seaborn')]\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT_DIR, capture_output=True,
