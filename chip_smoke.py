@@ -82,8 +82,28 @@ Phases (any failure raises and the exit code is nonzero):
               host decode rate, the time the epoch loop is blocked by an
               async and by a sync save, and peak memory; then runs the two
               CLIs (cli.train, 1 epoch, and cli.eval on its best_model.pth,
-              --tiny) on the same tree, and removes the tree;
-8. clis    -- the measuring, ablation and visualisation entry points. It
+              --tiny) on the same tree;
+8. dp      -- data parallelism (ewvit_tpu_torch.parallel) as an NCCL world
+              of one in this process (make_mesh without torchrun's
+              environment; the NCCL version is printed): the three requests
+              served on the three_flags and fused_mwt_tail paths with
+              mesh= and frame_axis (bit for bit the serve phase's
+              probabilities, the same K1-K4 launches, no fold or pack) and
+              ms per request with and without the mesh; evaluation.evaluate
+              with mesh= on the checkpoint phase's batches (the phase's
+              predictions bit for bit); one fp32 step on one clip of 10
+              frames (frame_chunk 4, tail 2) with and without the mesh (the
+              synced BN against cuDNN's: the train phase's tolerances, each
+              at least 4 times the distance of a third step whose BN runs
+              on torch's native CUDA kernel instead of cuDNN's); 2
+              bf16 dynamic steps of [4, 40, 224, 224, 3], accum 2, with and
+              without the mesh (the loss finite and falling, K1 as derived,
+              K2-K4 never; ms per step; the bytes of the gradient all-reduce
+              per update); then `torchrun --nproc-per-node=1 -m
+              ewvit_tpu_torch.cli.train --mesh --tiny` for 1 epoch and
+              `cli.eval --mesh` on the fit phase's tree, which is then
+              removed;
+9. clis    -- the measuring, ablation and visualisation entry points. It
               prints whether matplotlib imports (with it each step runs the
               CLI's main with its plots, without it the compute half, and
               says that no plot was drawn); cli.test.measure at full width
@@ -103,7 +123,8 @@ Phases (any failure raises and the exit code is nonzero):
               frame (visualize_feature_maps.collect in fp32 with the four
               flags, exact K1-K3 launches, held to the same function on the
               CPU within atol 1e-3); and the phase's wall time;
-9. report  -- one JSON line describing every kernel, then the final line
+10. report -- one JSON line describing every kernel (with dp_launches, the
+              dp phase's counts), then the final line
               {"ok": true, "device": {...}}.
 
 Without a CUDA device, or run outside the repository, it exits nonzero and
@@ -112,6 +133,7 @@ prints no result. It imports nothing of JAX or of the ewvit_tpu package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -147,6 +169,7 @@ from ewvit_tpu_torch.evaluation import evaluate
 from ewvit_tpu_torch.models.detector import ABLATION_MODES, random_detector
 from ewvit_tpu_torch.models.efficientnet import DepthwiseSE
 from ewvit_tpu_torch.models.kept import KeepsWeights
+from ewvit_tpu_torch.models.norm import BatchNorm2d
 from ewvit_tpu_torch.ops import extension
 from ewvit_tpu_torch.ops.dw_se import (
     dw_bn_silu_mean,
@@ -173,6 +196,7 @@ from ewvit_tpu_torch.ops.mwt_tail import (
     pack_tail,
 )
 from ewvit_tpu_torch.ops.preprocess import preprocess_batch
+from ewvit_tpu_torch.parallel import make_mesh
 from ewvit_tpu_torch.train import loop as train_loop
 from ewvit_tpu_torch.train.checkpoint import CheckpointManager
 from ewvit_tpu_torch.train.loop import Trainer
@@ -882,10 +906,16 @@ class PaddedBatches:
             yield c, y
 
 
+EVAL_PATHS = ("fused_mwt_tail", "sfe_only", "sfe_mwt")
+EVAL_LABELS = np.array([0, 1, 1, 0, 1])
+
+
 def phase_checkpoint(requests, state, served):
     """The weights as a reference-layout .pth: served through
     ``from_checkpoint`` on every path (bit for bit the served probabilities)
-    and evaluated in each mode on labelled in-memory batches."""
+    and evaluated in each mode on labelled in-memory batches; returns each
+    evaluated path's predictions."""
+    evaluated = {}
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "detector.pth")
         torch.save({"model_state_dict": {f"module.{k}": v.cpu() for k, v in state.items()},
@@ -905,8 +935,8 @@ def phase_checkpoint(requests, state, served):
         # 5 labelled clips (the 3 requests' 6 less one) in batches of 2, the
         # tail padded; labels of both classes so AUC, EER and AP are defined
         clips = np.concatenate(requests)[:5]
-        labels = np.array([0, 1, 1, 0, 1])
-        for name in ("fused_mwt_tail", "sfe_only", "sfe_mwt"):
+        labels = EVAL_LABELS
+        for name in EVAL_PATHS:
             cfg, mode = PATHS[name]
             m = evaluate(load_model(path, cfg, device="cuda"), PaddedBatches(clips, labels),
                          mode=mode, frame_chunk=32, device="cuda")
@@ -922,7 +952,9 @@ def phase_checkpoint(requests, state, served):
                       "recall", "f1", "orth_loss"):
                 if not np.isfinite(m[k]):
                     fail(f"evaluate {mode}: {k} = {m[k]} is not finite")
+            evaluated[name] = m["preds"]
             torch.cuda.empty_cache()
+    return evaluated
 
 
 # ------------------------------------------------------------------ train
@@ -955,7 +987,7 @@ def train_model(cfg, state):
 
 
 def train_steps(model, clips, labels, *, mode, steps, accum, frame_chunk, remat=True,
-                timed_from=None, seed=0):
+                timed_from=None, seed=0, mesh=None):
     """``steps`` train steps of ``model`` on one batch: the uint8 ``clips``
     preprocessed once in train mode (jitter from a generator seeded by
     ``seed``), the same dropout seed every step, so each step descends one
@@ -974,9 +1006,12 @@ def train_steps(model, clips, labels, *, mode, steps, accum, frame_chunk, remat=
                               generator=gen)
     y = torch.from_numpy(labels).to("cuda")
 
+    if mesh is not None:          # this rank's rows (all of them in a world of one)
+        frames, y = mesh.shard(frames, groups=accum), mesh.shard(y, groups=accum)
+
     def step():
         return train_step(model, opt, frames, y, seed=seed, mode=mode,
-                          frame_chunk=frame_chunk, accum_steps=accum, remat=remat)
+                          frame_chunk=frame_chunk, accum_steps=accum, remat=remat, mesh=mesh)
 
     losses, ms = [], []
     extension.reset_launches()
@@ -993,6 +1028,7 @@ def train_steps(model, clips, labels, *, mode, steps, accum, frame_chunk, remat=
     losses = torch.stack(losses).tolist()
     names = {id(p): n for n, p in model.named_parameters()}
     return dict(losses=losses, ms=ms, launches=dict(extension.LAUNCHES), start=start,
+                grad_bytes=sum(p.numel() * p.element_size() for p in params),
                 ever_grad={names[id(p)] for p, e in zip(params, ever.tolist()) if e},
                 opt=opt, step=step)
 
@@ -1070,26 +1106,61 @@ def fp32_step(cfg, state, clip, label, **kw):
     return out
 
 
-def compare_steps(a, b, what):
+def compare_steps(a, b, what, spread=None):
     """Loss 1e-5, each gradient 1e-4 of its tensor's max abs, running
-    statistics 1e-5."""
+    statistics 1e-5. ``spread``: a third step that differs from ``a`` only
+    in its BN kernel (the dp phase holds two BN implementations, whose
+    rounding differs); each of those bounds is then at least 4 times that
+    step's distance from ``a`` in the same quantity and tensor."""
     (la, ga, sa, _), (lb, gb, sb, _) = a, b
-    if abs(la - lb) > 1e-5:
+    ls, gs, ss = (la, ga, sa) if spread is None else spread[:3]
+    if abs(la - lb) > max(1e-5, 4 * abs(la - ls)):
         fail(f"{what}: loss {la} vs {lb}")
     if ga.keys() != gb.keys():
         fail(f"{what}: different parameters have gradients")
-    worst = 0.0
+    worst, spread_worst, wider = 0.0, 0.0, 0
     for n in ga:
         scale = ga[n].abs().max().item()
         err = (ga[n] - gb[n]).abs().max().item()
-        if err > 1e-4 * scale:
-            fail(f"{what}: gradient {n} differs by {err:.3e} (max abs {scale:.3e})")
+        base = (ga[n] - gs[n]).abs().max().item()
+        if err > max(1e-4 * scale, 4 * base):
+            fail(f"{what}: gradient {n} differs by {err:.3e} (max abs {scale:.3e}; "
+                 f"the other BN kernel's step by {base:.3e})")
+        wider += err > 1e-4 * scale
         worst = max(worst, err / scale if scale else 0.0)
-    stat_err = max((sa[n] - sb[n]).abs().max().item() for n in sa)
-    if stat_err > 1e-5:
-        fail(f"{what}: running statistics differ by {stat_err:.3e}")
+        spread_worst = max(spread_worst, base / scale if scale else 0.0)
+    stat_errs = [((sa[n] - sb[n]).abs().max().item(), (sa[n] - ss[n]).abs().max().item())
+                 for n in sa]
+    for err, base in stat_errs:
+        if err > max(1e-5, 4 * base):
+            fail(f"{what}: running statistics differ by {err:.3e} (the other BN kernel's "
+                 f"step by {base:.3e})")
     print(f"[train] {what}: loss {la:.7f} vs {lb:.7f}, worst gradient difference "
-          f"{worst:.3e} of its tensor's max abs, running statistics {stat_err:.3e}")
+          f"{worst:.3e} of its tensor's max abs, running statistics "
+          f"{max(e for e, _ in stat_errs):.3e}" + ("" if spread is None else
+          f"; the step on torch's native BN kernel: loss {ls:.7f}, worst gradient "
+          f"{spread_worst:.3e} of max, running statistics "
+          f"{max(b for _, b in stat_errs):.3e}; {wider} tensors beyond 1e-4 of their max, "
+          f"each within 4x the native kernel's distance"))
+
+
+@contextlib.contextmanager
+def native_bn():
+    """Train-mode BN on torch's own CUDA kernels (cuDNN off for the BN call
+    only, its other flags kept)."""
+    real = BatchNorm2d.forward
+
+    def forward(self, x):
+        b = torch.backends.cudnn
+        with b.flags(enabled=False, benchmark=b.benchmark, deterministic=b.deterministic,
+                     allow_tf32=b.allow_tf32):
+            return real(self, x)
+
+    BatchNorm2d.forward = forward
+    try:
+        yield
+    finally:
+        BatchNorm2d.forward = real
 
 
 def phase_train(state, cfg, clips, chunk=32):
@@ -1365,104 +1436,301 @@ def run_clis(root, tmp):
           f"{time.perf_counter() - t:.1f} s; eval_results.csv: {rows}")
 
 
-def phase_fit(state, cfg, bare_step_ms):
-    """Trainer.fit at full width on a synthetic tree, with its checks; returns
-    the measurements."""
+def phase_fit(state, cfg, bare_step_ms, tmp):
+    """Trainer.fit at full width on a synthetic tree written under ``tmp``
+    (left there for the dp phase), with its checks; returns the
+    measurements."""
     cfg = cfg.replace(frame_chunk=FIT_CHUNK)      # the Trainer chunks as its config says
     decode_route()
-    tmp = tempfile.mkdtemp(prefix="ewvit_fit_")
+    root = os.path.join(tmp, "data")
+    t = time.perf_counter()
+    write_ff_tree(root, pairs=FIT_PAIRS, frames=FIT_FRAMES, height=FIT_HEIGHT,
+                  width=FIT_WIDTH, seed=0)
+    print(f"[fit] wrote a {FIT_PAIRS} pair FF++ tree of {FIT_FRAMES}-frame "
+          f"{FIT_WIDTH}x{FIT_HEIGHT} PNG videos in {time.perf_counter() - t:.1f} s")
+    train_ds, val_ds, train_loader, val_loader = fit_data(root)
+    fps = decode_rate(val_loader, FIT_FRAMES)
+    ckpt_dir = os.path.join(tmp, "checkpoints")
+    steps_per_epoch = max(1, len(train_loader) // FIT_ACCUM)
+    trainer = fit_trainer(cfg, state, ckpt_dir, train_ds, steps_per_epoch)
+    timer = StepTimer()
+    train_loop.train_step = timer
+    counted, saves = Counted(trainer, timer), SaveTimer(trainer.ckpt)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
     try:
-        root = os.path.join(tmp, "data")
-        t = time.perf_counter()
-        write_ff_tree(root, pairs=FIT_PAIRS, frames=FIT_FRAMES, height=FIT_HEIGHT,
-                      width=FIT_WIDTH, seed=0)
-        print(f"[fit] wrote a {FIT_PAIRS} pair FF++ tree of {FIT_FRAMES}-frame "
-              f"{FIT_WIDTH}x{FIT_HEIGHT} PNG videos in {time.perf_counter() - t:.1f} s")
-        train_ds, val_ds, train_loader, val_loader = fit_data(root)
-        fps = decode_rate(val_loader, FIT_FRAMES)
-        ckpt_dir = os.path.join(tmp, "checkpoints")
-        steps_per_epoch = max(1, len(train_loader) // FIT_ACCUM)
-        trainer = fit_trainer(cfg, state, ckpt_dir, train_ds, steps_per_epoch)
-        timer = StepTimer()
-        train_loop.train_step = timer
-        counted, saves = Counted(trainer, timer), SaveTimer(trainer.ckpt)
-        torch.cuda.reset_peak_memory_stats()
-        t = time.perf_counter()
-        try:
-            result = trainer.fit(train_loader, val_loader, train_dataset=train_ds,
-                                 val_dataset=val_ds)
-        finally:
-            train_loop.train_step = train_step
-        fit_s = time.perf_counter() - t
-        peak = torch.cuda.max_memory_allocated()
-        check_fit_epochs(cfg, trainer.model, counted, len(val_ds))
-        for n in detector_frozen_names():
-            if not torch.equal(trainer.model.state_dict()[n], state[n]):
-                fail(f"fit: frozen tensor {n} changed")
-        files = sorted(os.listdir(ckpt_dir))
-        if files != ["best_model.pth", "checkpoint_1.pth", "checkpoint_2.pth"]:
-            fail(f"fit: checkpoint files {files}")
-        step_ms = [b.elapsed_time(e) for _, b, e in timer.steps]
-        vals = [ep for ep in counted.epochs if ep["kind"] == "val"]
-        val_ms_clip = [ep["seconds"] * 1e3 / len(val_ds) for ep in vals]
-
-        # the epoch loop blocked by a save: the async saves above, and sync
-        # saves of the same model now
-        sync = CheckpointManager(os.path.join(tmp, "sync"))
-        sync_s = []
-        for epoch in range(2):
-            t = time.perf_counter()
-            sync.save_epoch(trainer.model, trainer.optimizer, epoch, result["best_val_auc"])
-            sync_s.append(time.perf_counter() - t)
-        ckpt_mib = os.path.getsize(os.path.join(ckpt_dir, "checkpoint_1.pth")) / 2**20
-        # one more train epoch (epoch 2's set, decode included) under the
-        # profiler: how busy the device is inside the Trainer's loop
-        t = time.perf_counter()
-        busy_ms, device_ops, top = profile_step(lambda: trainer.train_epoch(train_loader, 1))
-        profiled_ms = (time.perf_counter() - t) * 1e3
-        history = [{"epoch": h["epoch"], "train_loss": h["train"]["loss"],
-                    "val_loss": h["val"]["loss"], "val_auc": h["val"]["auc"]}
-                   for h in result["history"]]
-        del trainer
-        torch.cuda.empty_cache()
-
-        serve_best(ckpt_dir, cfg, val_loader, counted)
-
-        train_ds, val_ds, train_loader, val_loader = fit_data(root)
-        resumed = fit_trainer(cfg, state, os.path.join(tmp, "resumed"), train_ds,
-                              steps_per_epoch)
-        resumed.resume(os.path.join(ckpt_dir, "checkpoint_1.pth"))
-        again = resumed.fit(train_loader, val_loader, train_dataset=train_ds,
-                            val_dataset=val_ds)
-        if [h["epoch"] for h in again["history"]] != [1]:
-            fail(f"resume from checkpoint_1.pth ran epochs {[h['epoch'] for h in again['history']]}")
-        print("[fit] resume from checkpoint_1.pth: start epoch 2, ran epoch 2 only")
-        del resumed
-        torch.cuda.empty_cache()
-
-        run_clis(root, tmp)
-        measured = dict(
-            history=history, fit_s=fit_s, ms_per_step=float(np.mean(step_ms)),
-            ms_per_step_each=step_ms, bare_train_step_ms=bare_step_ms,
-            val_ms_per_clip=val_ms_clip, decode_frames_per_s=fps,
-            async_save_blocked_s=saves.seconds, sync_save_blocked_s=sync_s,
-            checkpoint_mib=ckpt_mib, peak_bytes=peak,
-            profiled_train_epoch=dict(wall_ms=profiled_ms, device_busy_ms=busy_ms,
-                                      device_ops=device_ops, top_device_ops=top))
-        print(f"[fit] Trainer.fit, 2 epochs at full width: {fit_s:.1f} s; ms per train step "
-              f"inside the Trainer {measured['ms_per_step']:.3f} "
-              f"({[round(v, 3) for v in step_ms]}) against the bare train_step's "
-              f"{bare_step_ms:.3f}; val ms per clip {[round(v, 3) for v in val_ms_clip]} "
-              f"({len(val_ds)} clips, epoch 1 then 2); host decode {fps:.1f} frames/s "
-              f"(cv2, 4 threads); epoch loop blocked per save: async "
-              f"{[round(v, 3) for v in saves.seconds]} s, sync "
-              f"{[round(v, 3) for v in sync_s]} s ({ckpt_mib:.1f} MiB a checkpoint); "
-              f"peak {peak / 2**30:.3f} GiB allocated; one more train epoch under the "
-              f"profiler: {profiled_ms:.1f} ms wall (profiler on), device busy "
-              f"{busy_ms:.3f} ms in {device_ops} operations; history {history}")
-        return measured
+        result = trainer.fit(train_loader, val_loader, train_dataset=train_ds,
+                             val_dataset=val_ds)
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        train_loop.train_step = train_step
+    fit_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    check_fit_epochs(cfg, trainer.model, counted, len(val_ds))
+    for n in detector_frozen_names():
+        if not torch.equal(trainer.model.state_dict()[n], state[n]):
+            fail(f"fit: frozen tensor {n} changed")
+    files = sorted(os.listdir(ckpt_dir))
+    if files != ["best_model.pth", "checkpoint_1.pth", "checkpoint_2.pth"]:
+        fail(f"fit: checkpoint files {files}")
+    step_ms = [b.elapsed_time(e) for _, b, e in timer.steps]
+    vals = [ep for ep in counted.epochs if ep["kind"] == "val"]
+    val_ms_clip = [ep["seconds"] * 1e3 / len(val_ds) for ep in vals]
+
+    # the epoch loop blocked by a save: the async saves above, and sync
+    # saves of the same model now
+    sync = CheckpointManager(os.path.join(tmp, "sync"))
+    sync_s = []
+    for epoch in range(2):
+        t = time.perf_counter()
+        sync.save_epoch(trainer.model, trainer.optimizer, epoch, result["best_val_auc"])
+        sync_s.append(time.perf_counter() - t)
+    ckpt_mib = os.path.getsize(os.path.join(ckpt_dir, "checkpoint_1.pth")) / 2**20
+    # one more train epoch (epoch 2's set, decode included) under the
+    # profiler: how busy the device is inside the Trainer's loop
+    t = time.perf_counter()
+    busy_ms, device_ops, top = profile_step(lambda: trainer.train_epoch(train_loader, 1))
+    profiled_ms = (time.perf_counter() - t) * 1e3
+    history = [{"epoch": h["epoch"], "train_loss": h["train"]["loss"],
+                "val_loss": h["val"]["loss"], "val_auc": h["val"]["auc"]}
+               for h in result["history"]]
+    del trainer
+    torch.cuda.empty_cache()
+
+    serve_best(ckpt_dir, cfg, val_loader, counted)
+
+    train_ds, val_ds, train_loader, val_loader = fit_data(root)
+    resumed = fit_trainer(cfg, state, os.path.join(tmp, "resumed"), train_ds,
+                          steps_per_epoch)
+    resumed.resume(os.path.join(ckpt_dir, "checkpoint_1.pth"))
+    again = resumed.fit(train_loader, val_loader, train_dataset=train_ds,
+                        val_dataset=val_ds)
+    if [h["epoch"] for h in again["history"]] != [1]:
+        fail(f"resume from checkpoint_1.pth ran epochs {[h['epoch'] for h in again['history']]}")
+    print("[fit] resume from checkpoint_1.pth: start epoch 2, ran epoch 2 only")
+    del resumed
+    torch.cuda.empty_cache()
+
+    run_clis(root, tmp)
+    measured = dict(
+        history=history, fit_s=fit_s, ms_per_step=float(np.mean(step_ms)),
+        ms_per_step_each=step_ms, bare_train_step_ms=bare_step_ms,
+        val_ms_per_clip=val_ms_clip, decode_frames_per_s=fps,
+        async_save_blocked_s=saves.seconds, sync_save_blocked_s=sync_s,
+        checkpoint_mib=ckpt_mib, peak_bytes=peak,
+        profiled_train_epoch=dict(wall_ms=profiled_ms, device_busy_ms=busy_ms,
+                                  device_ops=device_ops, top_device_ops=top))
+    print(f"[fit] Trainer.fit, 2 epochs at full width: {fit_s:.1f} s; ms per train step "
+          f"inside the Trainer {measured['ms_per_step']:.3f} "
+          f"({[round(v, 3) for v in step_ms]}) against the bare train_step's "
+          f"{bare_step_ms:.3f}; val ms per clip {[round(v, 3) for v in val_ms_clip]} "
+          f"({len(val_ds)} clips, epoch 1 then 2); host decode {fps:.1f} frames/s "
+          f"(cv2, 4 threads); epoch loop blocked per save: async "
+          f"{[round(v, 3) for v in saves.seconds]} s, sync "
+          f"{[round(v, 3) for v in sync_s]} s ({ckpt_mib:.1f} MiB a checkpoint); "
+          f"peak {peak / 2**30:.3f} GiB allocated; one more train epoch under the "
+          f"profiler: {profiled_ms:.1f} ms wall (profiler on), device busy "
+          f"{busy_ms:.3f} ms in {device_ops} operations; history {history}")
+    return measured
+
+
+# ------------------------------------------------------------------ dp
+
+DP_PATHS = ("three_flags", "fused_mwt_tail")
+
+
+def nccl_version() -> str:
+    """The NCCL version torch was built with."""
+    v = torch.cuda.nccl.version()
+    return ".".join(str(x) for x in v) if isinstance(v, tuple) else str(v)
+DP_TIMED_ROUNDS = 3
+
+
+def dp_serve(name, state, requests, served, mesh):
+    """The ``name`` path served with and without the mesh: the mesh engine's
+    launches over what the serve phase counted (predict, then
+    predict_stream, of every request), its probabilities against the serve
+    phase's bit for bit, then host ms per request of both engines,
+    alternating."""
+    cfg, mode = PATHS[name]
+    engines = {}
+    for kind in ("plain", "mesh"):
+        model = build_detector(cfg, device="cuda")
+        model.load_state_dict(state, strict=True)
+        engines[kind] = InferenceEngine(model, mode=mode, frame_chunk=32, device="cuda",
+                                        **(dict(mesh=mesh, frame_axis=True)
+                                           if kind == "mesh" else {}))
+        engines[kind].warmup(*requests[0].shape[:2])
+    engine = engines["mesh"]
+    extension.reset_launches()
+    probs = [engine.predict(c) for c in requests]
+    streamed = list(engine.predict_stream(iter(requests)))
+    launches = dict(extension.LAUNCHES)
+    for i, (p, q, want) in enumerate(zip(probs, streamed, served[name]["probs"])):
+        if not (np.array_equal(p, want) and np.array_equal(q, want)):
+            fail(f"dp {name}: request {i} served with the mesh {p} (streamed {q}), "
+                 f"without {want}")
+    want = served[name]["launches"]
+    bad = {k: (launches[k], want[k]) for k in KERNELS + FOLDS if launches[k] != want[k]}
+    if bad:
+        fail(f"dp {name}: launches (mesh, serve phase) {bad}")
+    for fold in FOLDS:
+        if launches[fold]:
+            fail(f"dp {name}: {fold} counted {launches[fold]} while serving")
+    ms = {kind: [] for kind in engines}
+    for _ in range(DP_TIMED_ROUNDS):
+        for clips in requests:
+            for kind, e in engines.items():
+                t = time.perf_counter()
+                e.predict(clips)
+                ms[kind].append((time.perf_counter() - t) * 1e3)
+    del engines, engine, model
+    torch.cuda.empty_cache()
+    return launches, ms
+
+
+def dp_train(cfg, state, clips, labels, mesh, steps=2, accum=2, chunk=32):
+    """``steps`` bf16 dynamic steps from ``state`` without and with the mesh,
+    each on a fresh model, and one more mesh step under the profiler; the
+    mesh run's checks. Returns (ms per step without, with), the profile,
+    the mesh run's launches and the gradient bytes an update all-reduces."""
+    ms, runs = {}, {}
+    for kind in ("plain", "mesh"):
+        model = train_model(cfg, state)
+        runs[kind] = train_steps(model, clips, labels, mode="dynamic", steps=steps,
+                                 accum=accum, frame_chunk=chunk, timed_from=0,
+                                 mesh=mesh if kind == "mesh" else None)
+        ms[kind] = runs[kind]["ms"]
+        if kind == "mesh":
+            launches = dict(runs[kind]["launches"])
+            profile = profile_step(runs[kind]["step"])
+        del model
+        torch.cuda.empty_cache()
+    run = dict(runs["mesh"], launches=launches)
+    losses = run["losses"]
+    print(f"[dp] bf16 dynamic steps with the mesh: losses {losses}; without "
+          f"{runs['plain']['losses']}")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        fail(f"dp train: the loss with the mesh is not finite and falling ({losses})")
+    k1 = k1_per_step(cfg, "dynamic", clips.shape[1], accum, chunk)
+    if run["launches"]["haar_dwt2d"] != k1 * steps:
+        fail(f"dp train: K1 launched {run['launches']['haar_dwt2d']} times in {steps} "
+             f"steps, expected {k1} per step")
+    for k in NOT_IN_TRAIN:
+        if run["launches"][k]:
+            fail(f"dp train: {k} counted {run['launches'][k]} in train steps")
+    return ms, profile, {k: v / steps for k, v in run["launches"].items()}, run["grad_bytes"]
+
+
+def torchrun(module, args, tmp, timeout=600):
+    """``torchrun --standalone --nproc-per-node=1 -m module args`` from the
+    repository root; its process group is its own. Returns its stdout."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node=1", "-m", module, *args]
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        proc.communicate()
+        fail(f"torchrun {module} did not finish in {timeout} s")
+    if proc.returncode != 0:
+        fail(f"torchrun {module} exited {proc.returncode}:\n{out[-4000:]}")
+    return out
+
+
+def dp_clis(root, tmp):
+    """cli.train --mesh (1 epoch, --tiny) and cli.eval --mesh on its
+    checkpoint, each under torchrun on one GPU."""
+    out, ev = os.path.join(tmp, "dp_train"), os.path.join(tmp, "dp_eval")
+    common = ["--root", root, "--tiny", "--mesh", "--frame-count", "8", "--batch-size", "2"]
+    t = time.perf_counter()
+    log = torchrun("ewvit_tpu_torch.cli.train", common + ["--output", out, "--epochs", "1"], tmp)
+    ckpt = os.path.join(out, "checkpoints", "checkpoint_1.pth")
+    if "Data-parallel mesh: {'dcn': 1, 'data': 1, 'frames': 1}" not in log \
+            or not os.path.exists(ckpt):
+        fail(f"torchrun cli.train --mesh wrote no checkpoint_1.pth:\n{log[-4000:]}")
+    train_s = time.perf_counter() - t
+    t = time.perf_counter()
+    log_ev = torchrun("ewvit_tpu_torch.cli.eval",
+                      common + ["--model-path", ckpt, "--output", ev, "--dataset", "ff++"], tmp)
+    if "Data-parallel eval mesh:" not in log_ev:
+        fail(f"torchrun cli.eval --mesh printed no mesh:\n{log_ev[-4000:]}")
+    with open(os.path.join(ev, "eval_results.csv")) as f:
+        rows = f.read().splitlines()
+    if len(rows) != 7:
+        fail(f"torchrun cli.eval --mesh rows {rows}")
+    print(f"[dp] torchrun --nproc-per-node=1 cli.train --mesh --tiny (1 epoch) in "
+          f"{train_s:.1f} s: {[l for l in log.splitlines() if 'Epoch 1/1' in l]}; cli.eval "
+          f"--mesh in {time.perf_counter() - t:.1f} s: eval_results.csv {rows[:2]}")
+    return dict(train_s=train_s, eval_s=time.perf_counter() - t)
+
+
+def phase_dp(state, requests, served, evaluated, train_clips, root, tmp):
+    """Data parallelism as an NCCL world of one: serving, evaluation, the
+    fp32 and bf16 train steps and the two CLIs under torchrun, each with the
+    mesh against the same work without it."""
+    t0 = time.perf_counter()
+    mesh = make_mesh(device="cuda")
+    try:
+        backend = torch.distributed.get_backend()
+        if backend != "nccl" or mesh.device != torch.device("cuda", 0):
+            fail(f"dp: the mesh runs {backend} on {mesh.device}")
+        print(f"[dp] NCCL {nccl_version()}, mesh {mesh.shape} on {mesh.device}, backend "
+              f"{backend}")
+        launches, ms = {}, {}
+        for name in DP_PATHS:
+            launches[f"serve_{name}"], ms[name] = dp_serve(name, state, requests, served, mesh)
+            print(f"[dp] serve {name} with the mesh: probabilities bit for bit the serve "
+                  f"phase's, launches {launches[f'serve_{name}']}; host ms per request "
+                  f"(x{DP_TIMED_ROUNDS} rounds, alternating): mesh "
+                  f"{[round(v, 3) for v in ms[name]['mesh']]}, no mesh "
+                  f"{[round(v, 3) for v in ms[name]['plain']]}")
+
+        clips = np.concatenate(requests)[:5]
+        for name in EVAL_PATHS:
+            cfg, mode = PATHS[name]
+            model = build_detector(cfg, device="cuda")
+            model.load_state_dict(state, strict=True)
+            m = evaluate(model, PaddedBatches(clips, EVAL_LABELS), mode=mode, frame_chunk=32,
+                         device="cuda", mesh=mesh)
+            if m["labels"] != EVAL_LABELS.tolist() or m["preds"] != evaluated[name]:
+                fail(f"dp evaluate {mode}: labels {m['labels']}, preds {m['preds']} against "
+                     f"the checkpoint phase's {evaluated[name]}")
+            del model
+        print(f"[dp] evaluate with the mesh ({', '.join(EVAL_PATHS)}): labels and "
+              "predictions equal the checkpoint phase's")
+        torch.cuda.empty_cache()
+
+        cfg = ModelConfig().replace(**TRAIN_FLAGS)
+        labels = np.array([1.0, 0.0, 1.0, 0.0], np.float32)
+        clip, label = train_clips[:1, :10], labels[:1]
+        cudnn_step = fp32_step(cfg, state, clip, label)
+        with native_bn():
+            native_step = fp32_step(cfg, state, clip, label)
+        compare_steps(cudnn_step, fp32_step(cfg, state, clip, label, mesh=mesh),
+                      "dp fp32 step, no mesh vs mesh (cuDNN BN vs the synced BN)",
+                      spread=native_step)
+        step_ms, (busy_ms, device_ops, top), per_step, grad_bytes = dp_train(
+            cfg, state, train_clips, labels, mesh)
+        launches["train_per_step"] = per_step
+        print(f"[dp] bf16 dynamic step [4, 40, 224, 224, 3], accum 2: ms per step (CUDA "
+              f"events) mesh {[round(v, 3) for v in step_ms['mesh']]}, no mesh "
+              f"{[round(v, 3) for v in step_ms['plain']]}; one more mesh step profiled: "
+              f"device busy {busy_ms:.3f} ms in {device_ops} device operations, top {top}; "
+              f"gradient all-reduce {grad_bytes} bytes ({grad_bytes / 2**20:.1f} MiB) per "
+              f"update; launches per step {per_step}")
+    finally:
+        mesh.close()
+    if torch.distributed.is_initialized():
+        fail("dp: the process group outlived mesh.close()")
+    clis = dp_clis(root, tmp)
+    measured = dict(serve_ms=ms, train_ms=step_ms, train_mesh_device_busy_ms=busy_ms,
+                    train_mesh_device_ops=device_ops, grad_allreduce_bytes=grad_bytes,
+                    nccl=nccl_version(), clis=clis, wall_s=time.perf_counter() - t0)
+    return measured, launches
 
 
 # ------------------------------------------------------------------ clis
@@ -1709,12 +1977,20 @@ def main() -> int:
                 for _ in range(3)]
     state = random_detector(PATHS["three_flags"][0], device="cuda", seed=0).state_dict()
     served = phase_serve(requests, state)
-    phase_checkpoint(requests, state, served)
-    trained = phase_train(state, ModelConfig().replace(**TRAIN_FLAGS),
-                          rng.integers(0, 256, (4, 40, 224, 224, 3), dtype=np.uint8))
+    evaluated = phase_checkpoint(requests, state, served)
+    train_clips = rng.integers(0, 256, (4, 40, 224, 224, 3), dtype=np.uint8)
+    trained = phase_train(state, ModelConfig().replace(**TRAIN_FLAGS), train_clips)
     print(f"[train] {json.dumps(trained)}")
-    fitted = phase_fit(state, ModelConfig().replace(**TRAIN_FLAGS), trained["ms_per_step"])
-    print(f"[fit] {json.dumps(fitted)}")
+    tmp = tempfile.mkdtemp(prefix="ewvit_fit_")
+    try:
+        fitted = phase_fit(state, ModelConfig().replace(**TRAIN_FLAGS), trained["ms_per_step"],
+                           tmp)
+        print(f"[fit] {json.dumps(fitted)}")
+        dp, dp_launches = phase_dp(state, requests, served, evaluated, train_clips,
+                                   os.path.join(tmp, "data"), tmp)
+        print(f"[dp] {json.dumps(dp)}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     clis = phase_clis(state)
     print(f"[clis] {json.dumps(clis)}")
     launches = {name: run["launches"] for name, run in served.items()}
@@ -1724,8 +2000,9 @@ def main() -> int:
         if r["name"] != "conv3x3_winograd":   # K5: the kernels phase's count
             r["launches"] = launches["fused_mwt_tail"][r["name"]]
         r["clis_launches"] = {p: n[r["name"]] for p, n in clis["launches"].items()}
+        r["dp_launches"] = {p: n[r["name"]] for p, n in dp_launches.items()}
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",
-            "train_launches_per_step", "clis_launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "train_launches_per_step", "clis_launches", "dp_launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "cold_ms", "general_ms", "max_active_clusters")
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [{k: r.get(k) for k in keys} for r in report]}))

@@ -14,7 +14,10 @@ inference-only as in the JAX package), and runs the training run
 and ``.cli.eval``), and is measured and studied through ``.cli.test``
 (latency), ``.cli.bench`` (frames/s), ``.cli.calculate_gflops``,
 ``.cli.ablation``, ``.cli.plot_celebdf_roc`` and
-``.cli.visualize_feature_maps``. Imports torch and numpy only (cv2 where a
+``.cli.visualize_feature_maps``; data-parallel over ``torch.distributed``
+(``parallel.make_mesh``: ``mesh=`` in the engine, ``evaluate``,
+``train_step`` and the ``Trainer``, ``--mesh`` in the CLIs under
+``torchrun``). Imports torch and numpy only (cv2 where a
 frame is decoded, matplotlib inside a plot), never JAX or the ewvit_tpu
 package. Entry points run on the GPU
 unless the caller passes ``device="cpu"``.

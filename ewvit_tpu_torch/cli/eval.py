@@ -1,4 +1,4 @@
-"""Evaluate a trained detector on one GPU: ``python -m ewvit_tpu_torch.cli.eval``.
+"""Evaluate a trained detector: ``python -m ewvit_tpu_torch.cli.eval``.
 
 The flags and flow of the JAX package's ``eval.py`` (the reference's eval.py
 :30-58, :210-433): the overall pass, then the five-method FF++ loop
@@ -11,8 +11,13 @@ casts it to the compute dtype for inference. ``--device`` (default
 ``--visualize`` renders ``EvalVisualization``'s five plots (needs
 matplotlib) into ``visualizations/<name>/`` per pass (``all_methods`` for
 the overall or "all" pass), or for Celeb-DF into ``--output`` itself, as
-the JAX CLI's ``_render_viz`` (eval.py:71-98, :206-216). ``--mesh`` is not
-ported yet and raises.
+the JAX CLI's ``_render_viz`` (eval.py:71-98, :206-216).
+
+``--mesh`` evaluates data-parallel over the batch (``parallel.make_mesh``;
+``torchrun --nproc-per-node=N -m ewvit_tpu_torch.cli.eval --mesh ...``, a
+world of one without torchrun): each rank decodes its rows of every batch,
+``--batch-size`` must be divisible by the ranks (eval.py:143-147), and rank 0
+alone prints and writes.
 """
 
 from __future__ import annotations
@@ -54,7 +59,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--s2d-stem", action="store_true",
                    help="accepted for the JAX CLI's sake; the port has one stem")
     p.add_argument("--mesh", "--multi-chip", action="store_true",
-                   help="not ported yet (data-parallel eval)")
+                   help="data-parallel eval over the ranks torchrun starts (a world "
+                        "of one without torchrun)")
     p.add_argument("--num-workers", type=int, default=4)
     p.add_argument("--tiny", action="store_true",
                    help="ModelConfig.tiny() (64px): smoke runs only")
@@ -107,17 +113,28 @@ def _export(output: str, rows: List[Dict], confusions: Dict) -> None:
 def main(argv: Optional[Sequence[str]] = None) -> Dict:
     """Returns what was exported: ``{"rows": [...], "confusions": {...}}``."""
     args = parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError("--mesh (data-parallel eval) is not yet ported")
     random.seed(args.seed)
     np.random.seed(args.seed)
+    mesh = None
+    if args.mesh:
+        from ewvit_tpu_torch.parallel import make_mesh
 
+        mesh = make_mesh(device=args.device)      # every rank on the 'data' axis
+    try:
+        return _run(args, mesh)
+    finally:
+        if mesh is not None:
+            mesh.close()
+
+
+def _run(args: argparse.Namespace, mesh) -> Dict:
     from ewvit_tpu_torch.configs import ModelConfig
     from ewvit_tpu_torch.data.transforms import FrameTransform
     from ewvit_tpu_torch.device import resolve_device
     from ewvit_tpu_torch.evaluation import evaluate, get_dataloader, load_model, print_metrics
 
-    device = resolve_device(args.device)
+    lead = mesh is None or mesh.rank == 0
+    device = mesh.device if mesh is not None else resolve_device(args.device)
     if args.tiny:
         cfg = ModelConfig.tiny().replace(pos_mode=args.pos_mode)
     else:
@@ -129,13 +146,22 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     ev = dict(mode=args.ablation, frame_chunk=cfg.frame_chunk, device=device)
     loader_kw = dict(batch_size=args.batch_size, num_workers=args.num_workers,
                      transform=transform)
+    if mesh is not None:
+        dp = mesh.batch_size
+        if args.batch_size % dp:
+            raise ValueError(f"--batch-size {args.batch_size} must be divisible by the "
+                             f"mesh batch axes dcn*data = {dp}")
+        ev["mesh"], loader_kw["shard"] = mesh, mesh.batch_shard
+        if lead:
+            print(f"Data-parallel eval mesh: {mesh.shape}")
 
     rows, confusions = [], {}
     viz_results = []      # (visualizations/<name>, result) per pass
 
     def run(name: str, title: str, loader) -> None:
         m = evaluate(model, loader, **ev)
-        print_metrics(title, m)
+        if lead:
+            print_metrics(title, m)
         rows.append(_row(name, m))
         confusions[name] = m["confusion_matrix"]
         viz_results.append(("all_methods" if name in ("overall", "all") else name, m))
@@ -161,6 +187,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
             name = method or "all"
             run(name, f"diffusion/{name}", loader)
 
+    if not lead:
+        return {"rows": rows, "confusions": confusions}
     _export(args.output, rows, confusions)
     if args.visualize:
         if args.dataset == "celeb-df":      # plots in the output dir itself

@@ -1,4 +1,4 @@
-"""Train the detector on one GPU: ``python -m ewvit_tpu_torch.cli.train``.
+"""Train the detector: ``python -m ewvit_tpu_torch.cli.train``.
 
 The flags and flow of the JAX package's ``train.py`` (:23-74, :77-161), the
 reference trainer's (train.py:27-53, :176-345): FF++ train and val sets with
@@ -9,7 +9,13 @@ for a smoke run with ``--tiny``) is the port's own. ``--s2d-stem`` is
 accepted and ignored (the port has one stem, ``configs.ModelConfig``);
 ``--visualize`` writes ``utils.visualization.TrainVisualization``'s plots
 and ``training_history.csv`` into ``--output`` (needs matplotlib).
-``--mesh`` (data parallelism) is not ported yet and raises.
+
+``--mesh`` trains data-parallel (``parallel.make_mesh``: one process per
+GPU, the batch split over them): launch ``torchrun --nproc-per-node=N -m
+ewvit_tpu_torch.cli.train --mesh ...``; without torchrun's environment it
+forms a world of one. ``--batch-size`` must be divisible by the ranks (the
+JAX CLI asks ``batch * accum`` to divide, train.py:136-139; here a
+micro-batch cannot split below a clip). Rank 0 alone prints and writes.
 """
 
 from __future__ import annotations
@@ -39,7 +45,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--accum-steps", "--as", type=int, default=2,
                    help="Gradient accumulation steps")
     p.add_argument("--mesh", "--multi-chip", action="store_true",
-                   help="not ported yet (data parallelism)")
+                   help="data-parallel over the ranks torchrun starts (a world of "
+                        "one without torchrun)")
     p.add_argument("--resume", type=str, default=None,
                    help="Path to checkpoint to resume from")
     p.add_argument("--seed", type=int, default=42)
@@ -70,11 +77,22 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     args = parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError("--mesh (data parallelism) is not yet ported")
     random.seed(args.seed)
     np.random.seed(args.seed)
 
+    mesh = None
+    if args.mesh:
+        from ewvit_tpu_torch.parallel import make_mesh
+
+        mesh = make_mesh(device=args.device)      # every rank on the 'data' axis
+    try:
+        return _run(args, mesh)
+    finally:
+        if mesh is not None:
+            mesh.close()
+
+
+def _run(args: argparse.Namespace, mesh) -> dict:
     from ewvit_tpu_torch.configs import ModelConfig, TrainConfig
     from ewvit_tpu_torch.data.datasets import FaceForensicsDataset
     from ewvit_tpu_torch.data.pipeline import BatchLoader
@@ -83,9 +101,20 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     from ewvit_tpu_torch.train.loop import Trainer
     from ewvit_tpu_torch.utils.visualization import TrainVisualization
 
-    device = resolve_device(args.device)
-    os.makedirs(args.output, exist_ok=True)
-    print(f"Device: {device}")
+    lead = mesh is None or mesh.rank == 0
+    say = print if lead else (lambda *a, **k: None)
+    shard = None
+    if mesh is not None:
+        dp = mesh.batch_size
+        if args.batch_size % dp:
+            raise ValueError(f"--batch-size {args.batch_size} must be divisible by the "
+                             f"mesh batch axes dcn*data = {dp}")
+        shard = mesh.batch_shard
+        say(f"Data-parallel mesh: {mesh.shape}")
+    device = mesh.device if mesh is not None else resolve_device(args.device)
+    if lead:
+        os.makedirs(args.output, exist_ok=True)
+    say(f"Device: {device}")
 
     if args.tiny:
         model_cfg = ModelConfig.tiny().replace(pos_mode=args.pos_mode)
@@ -99,13 +128,13 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     val_ds = FaceForensicsDataset(args.root, split="val", frame_count=args.frame_count,
                                   transform=transform, seed=args.seed)
     train_loader = BatchLoader(train_ds, args.batch_size, shuffle=True, drop_last=True,
-                               num_workers=args.num_workers, seed=args.seed)
+                               num_workers=args.num_workers, seed=args.seed, shard=shard)
     val_loader = BatchLoader(val_ds, args.batch_size, pad_last=True,
-                             num_workers=args.num_workers, seed=args.seed)
+                             num_workers=args.num_workers, seed=args.seed, shard=shard)
 
     # pos_weight = fake/real ratio (train.py:268-272)
     pos_weight = train_ds.fake_ratio
-    print(f"pos_weight (fake/real): {pos_weight:.3f}")
+    say(f"pos_weight (fake/real): {pos_weight:.3f}")
     train_cfg = TrainConfig(batch_size=args.batch_size, epochs=args.epochs, lr=args.lr,
                             frame_count=args.frame_count, accum_steps=args.accum_steps,
                             seed=args.seed)
@@ -114,13 +143,14 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                       steps_per_epoch=steps_per_epoch,
                       checkpoint_dir=os.path.join(args.output, "checkpoints"),
                       remat=not args.no_remat, save_every=args.save_every,
-                      async_ckpt=not args.sync_ckpt, device=device)
+                      async_ckpt=not args.sync_ckpt, device=device, mesh=mesh,
+                      log=say)
     if args.resume:
         trainer.resume(args.resume)
-    viz = TrainVisualization(args.output) if args.visualize else None
+    viz = TrainVisualization(args.output) if args.visualize and lead else None
     result = trainer.fit(train_loader, val_loader, train_dataset=train_ds,
                          val_dataset=val_ds, viz=viz)
-    print(f"Best val AUC: {result['best_val_auc']:.4f}")
+    say(f"Best val AUC: {result['best_val_auc']:.4f}")
     return result
 
 

@@ -297,6 +297,18 @@ class FaceForensicsDataset(VideoFrameDataset):
         return len(self.real_videos) + len(self.fake_videos)
 
     def __getitem__(self, index: int) -> Tuple[np.ndarray, int]:
+        frames_dir, label = self._entry(index)
+        return self._load_clip(frames_dir), label
+
+    def mark_used(self, index: int) -> None:
+        """What ``__getitem__`` does to the curriculum's usage counts,
+        without decoding: a loader sharded over ranks (``BatchLoader(shard=)``)
+        calls it for the rows other ranks decode, so every rank's counts, and
+        so its next curriculum refresh, are those of the unsplit run."""
+        self._entry(index)
+
+    def _entry(self, index: int) -> Tuple[str, int]:
+        """(frames directory, label) of ``index``, counting a fake's use."""
         if index < len(self.real_videos):
             frames_dir, label = self.real_videos[index], 0
         else:
@@ -312,7 +324,7 @@ class FaceForensicsDataset(VideoFrameDataset):
                     raise IndexError(f"Index '{index}' out of range")
                 frames_dir = self.fake_videos[fi]["path"]
             label = 1
-        return self._load_clip(frames_dir), label
+        return frames_dir, label
 
     @property
     def fake_ratio(self) -> float:

@@ -4,6 +4,12 @@
 for a seed (numpy's ``default_rng``), ``drop_last``, ``pad_last`` with
 ``true_len()``, and a thread pool that decodes ahead of the consumer, in
 order. Batches are uint8 NHWC ``[B, T, H, W, 3]`` clips and int32 labels.
+``shard=(index, count)`` (data parallelism: ``parallel.Mesh.batch_shard``)
+keeps the global batches, their order, shuffle and padding, and yields
+only rows ``[index*B/count, (index+1)*B/count)`` of each: a rank decodes
+its own rows and no other's, and tells the dataset of the others
+(``mark_used``, where the dataset keeps usage counts for its curriculum),
+so every rank's dataset draws its next curriculum as the unsplit one does.
 
 :class:`DevicePrefetcher` is rebuilt for CUDA: each batch's clips go into
 pinned host memory and are copied to the card with ``non_blocking`` on a
@@ -23,7 +29,7 @@ import collections
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Iterator, Tuple
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,6 +49,10 @@ class BatchLoader:
       num_workers: decode threads. cv2 releases the GIL during imdecode/resize
         so threads scale on a multi-core host; 0 = synchronous.
       prefetch: max batches resident ahead of the consumer.
+      shard: ``(index, count)``: yield this rank's ``batch_size // count``
+        rows of each global batch (``batch_size`` must divide; needs
+        ``drop_last`` or ``pad_last``, so that every rank's share has the
+        same size). ``len`` and ``true_len`` stay global.
     """
 
     def __init__(
@@ -56,6 +66,7 @@ class BatchLoader:
         num_workers: int = 4,
         prefetch: int = 2,
         seed: int = 0,
+        shard: Optional[Tuple[int, int]] = None,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -66,6 +77,16 @@ class BatchLoader:
         self.prefetch = max(1, prefetch)
         self._rng = np.random.default_rng(seed)
         self._epoch = 0
+        if shard is not None:
+            index, count = shard
+            if batch_size % count or not 0 <= index < count:
+                raise ValueError(f"batch_size {batch_size} does not split into {count} "
+                                 f"equal shares (or shard index {index} is out of range)")
+            if not (drop_last or pad_last):
+                raise ValueError("a sharded loader needs drop_last or pad_last, so "
+                                 "that every rank's share of a batch has one size")
+        self.shard = shard
+        self._clip_shape = None
 
     def __len__(self) -> int:
         n = len(self.dataset)
@@ -88,11 +109,36 @@ class BatchLoader:
             self._rng.shuffle(idx)
         return idx
 
+    def _rows(self) -> int:
+        """Rows of a batch this loader yields (this rank's share)."""
+        return self.batch_size // (self.shard[1] if self.shard else 1)
+
+    def _share(self, batch: np.ndarray) -> np.ndarray:
+        """This rank's indices of a global batch; the dataset hears of the
+        others' (``mark_used``)."""
+        if self.shard is None:
+            return batch
+        per = self._rows()
+        lo = self.shard[0] * per
+        mine = batch[lo:lo + per]
+        note = getattr(self.dataset, "mark_used", None)
+        if note is not None:
+            for i in np.concatenate([batch[:lo], batch[lo + per:]]):
+                note(int(i))
+        return mine
+
     def _collate(self, items) -> Tuple[np.ndarray, np.ndarray]:
+        rows = self._rows()
+        if not items:     # a padded tail that holds none of this rank's rows
+            if self._clip_shape is None:
+                self._clip_shape = np.shape(self.dataset[0][0])
+            return (np.zeros((rows, *self._clip_shape), np.uint8),
+                    np.zeros(rows, np.int32))
         clips, labels = zip(*items)
         frames = np.stack(clips)  # [B, T, H, W, 3]
-        if self.pad_last and frames.shape[0] < self.batch_size:
-            pad = self.batch_size - frames.shape[0]
+        self._clip_shape = frames.shape[1:]
+        if self.pad_last and frames.shape[0] < rows:
+            pad = rows - frames.shape[0]
             frames = np.concatenate(
                 [frames, np.zeros((pad,) + frames.shape[1:], frames.dtype)])
             labels = labels + (0,) * pad
@@ -107,6 +153,7 @@ class BatchLoader:
         ]
         if self.drop_last and batches and len(batches[-1]) < self.batch_size:
             batches.pop()
+        batches = [self._share(b) for b in batches]
         if self.num_workers <= 0:
             for b in batches:
                 yield self._collate([self.dataset[int(i)] for i in b])

@@ -13,6 +13,13 @@ dataset pass (ewvit_tpu/evaluation.py, ewvit_tpu/train/steps.py:158-186).
 - :func:`get_dataloader` builds the FF++, Celeb-DF or diffusion test set
   and its ``pad_last`` loader.
 
+:func:`evaluate` with ``mesh`` (``parallel.make_mesh``) is data-parallel
+over the batch axis, as the JAX ``evaluate(mesh=)``: the loader yields this
+rank's rows of each global batch (``get_dataloader(shard=mesh.batch_shard)``),
+the weights are broadcast from rank 0, and :func:`eval_step` gathers the
+video-level outputs and labels over the batch group before the masked losses
+and the predictions, so every rank returns the world-of-one result.
+
 :func:`eval_step` also runs under ``torch.autocast`` on fp32 weights (the
 ``Trainer``'s val epoch); :func:`evaluate` casts the model it is given to
 the compute dtype in place, so it is for a loaded model, never for one
@@ -47,17 +54,25 @@ from ewvit_tpu_torch.utils.metrics import binary_metrics
 def eval_step(model: DeepfakeDetector, frames: torch.Tensor, labels: torch.Tensor,
               valid_mask: Optional[torch.Tensor] = None, *, mode: str = "dynamic",
               frame_chunk: int = 8, pos_weight: float = 1.0, epoch: int = 1,
-              max_epochs: int = 1) -> Dict[str, torch.Tensor]:
+              max_epochs: int = 1, mesh=None) -> Dict[str, torch.Tensor]:
     """``frames`` ``[B, K, 3, H, W]`` preprocessed, ``labels`` ``[B]`` ->
     ``{'loss', 'cls_loss', 'orth_loss'}`` (fp32 scalars) and ``'preds'`` ``[B]``
     (sigmoid probabilities). ``valid_mask`` (``[B]`` 0/1) keeps pad rows out
-    of both loss terms."""
-    outputs = video_forward(model, frames, mode=mode, frame_chunk=frame_chunk)
+    of both loss terms.
+
+    With ``mesh``: ``frames`` and ``labels`` are this rank's rows, and
+    ``valid_mask``, ``preds`` and the returned ``'labels'`` are the global
+    batch's."""
+    outputs = video_forward(model, frames, mode=mode, frame_chunk=frame_chunk, mesh=mesh)
+    extra = {}
+    if mesh is not None:
+        outputs = {k: mesh.gather(v) for k, v in outputs.items()}
+        labels = extra["labels"] = mesh.gather(labels)
     criterion = functools.partial(weighted_bce_with_logits, pos_weight=pos_weight)
     loss, parts = combined_loss(outputs, labels, criterion, epoch, max_epochs,
                                 valid_mask=valid_mask)
     return {"loss": loss, "cls_loss": parts["cls_loss"], "orth_loss": parts["orth_loss"],
-            "preds": torch.sigmoid(outputs["logits"].float()).reshape(-1)}
+            "preds": torch.sigmoid(outputs["logits"].float()).reshape(-1), **extra}
 
 
 def true_len(loader) -> Optional[int]:
@@ -73,10 +88,12 @@ def true_len(loader) -> Optional[int]:
 def get_dataloader(root: str, dataset: str = "ff++", *, split: str = "test",
                    batch_size: int = 8, frame_count: int = 300,
                    single_method: Optional[str] = None, test_list: Optional[str] = None,
-                   num_workers: int = 4, transform=None) -> Tuple[BatchLoader, object]:
+                   num_workers: int = 4, transform=None,
+                   shard: Optional[Tuple[int, int]] = None) -> Tuple[BatchLoader, object]:
     """Dataset and loader (the reference's eval.py:96-133; the JAX package's
     evaluation.py:113). Returns (loader, dataset); the loader pads the tail
-    batch (``pad_last``) and :func:`evaluate` trims the pad rows."""
+    batch (``pad_last``) and :func:`evaluate` trims the pad rows. ``shard``:
+    ``BatchLoader``'s (a rank's rows of each batch)."""
     transform = transform if transform is not None else FrameTransform()
     if dataset == "ff++":
         ds = FaceForensicsDataset(root, split=split, frame_count=frame_count,
@@ -88,11 +105,12 @@ def get_dataloader(root: str, dataset: str = "ff++", *, split: str = "test",
         ds = DiffusionDataset(root, transform=transform, single_method=single_method)
     else:
         raise ValueError(f"Unknown dataset '{dataset}'")
-    return BatchLoader(ds, batch_size, num_workers=num_workers, pad_last=True), ds
+    return BatchLoader(ds, batch_size, num_workers=num_workers, pad_last=True,
+                       shard=shard), ds
 
 
 def evaluate(model: DeepfakeDetector, loader, *, mode: str = "dynamic",
-             frame_chunk: int = 8, device: DeviceLike = "cuda") -> Dict:
+             frame_chunk: int = 8, device: DeviceLike = "cuda", mesh=None) -> Dict:
     """Metrics of ``model`` over ``loader``'s ``(clips, labels)`` batches.
 
     The model is moved to ``device`` and cast to its compute dtype for
@@ -100,25 +118,35 @@ def evaluate(model: DeepfakeDetector, loader, *, mode: str = "dynamic",
     the mean of the per-row losses: each batch's loss is weighted by its
     true size. ``orth_loss`` is the mean over batches and ``orth_losses``
     the per-batch series; ``preds`` and ``labels`` are the true rows'.
+
+    ``mesh``: data-parallel over the batch axis (the module docstring); the
+    model runs on ``mesh.device`` and ``loader`` yields this rank's rows.
     """
     check_mode(mode)
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     dtype = compute_dtype(model.cfg.compute_dtype)
-    model = cast_for_inference(model.to(dev).eval(), dtype)
+    model = model.to(dev).eval()
+    if mesh is not None:
+        mesh.replicate_(model)
+    model = cast_for_inference(model, dtype)
+    w = mesh.batch_size if mesh is not None else 1
     remaining = true_len(loader)
     orth_losses, preds, labels = [], [], []
     loss_sum, n_total = 0.0, 0
     # the copy of batch N+1 overlaps batch N's forward; labels stay on the host
     for clips, lbls in DevicePrefetcher(loader, dev):
         lbls = np.asarray(lbls)
-        n = len(lbls)
+        rows = len(lbls) * w          # the global batch
+        n = rows
         if remaining is not None:
             n = min(n, remaining)
             remaining -= n
-        valid = torch.as_tensor(np.arange(len(lbls)) < n, dtype=torch.float32, device=dev)
+        valid = torch.as_tensor(np.arange(rows) < n, dtype=torch.float32, device=dev)
         x = preprocess_batch(torch.as_tensor(clips).to(dev), dtype)
         out = eval_step(model, x, torch.as_tensor(lbls, dtype=torch.float32, device=dev),
-                        valid, mode=mode, frame_chunk=frame_chunk)
+                        valid, mode=mode, frame_chunk=frame_chunk, mesh=mesh)
+        if mesh is not None:
+            lbls = out["labels"].cpu().numpy().astype(lbls.dtype)
         loss_sum += float(out["loss"]) * n
         n_total += n
         orth_losses.append(float(out["orth_loss"]))

@@ -23,6 +23,7 @@ from ewvit_tpu_torch.configs import ModelConfig
 from ewvit_tpu_torch.models.layers import BidirectionalCrossTransformer
 from ewvit_tpu_torch.models.mwt import MWT
 from ewvit_tpu_torch.models.norm import BatchNorm2d
+from ewvit_tpu_torch.models.rows import Dropout
 from ewvit_tpu_torch.models.sfe import EfficientViT
 
 
@@ -46,7 +47,7 @@ class DAMA(nn.Module):
             BatchNorm2d(d, eps=1e-5, momentum=0.1), nn.ReLU())
         self.gate_net = nn.Sequential(
             nn.AdaptiveAvgPool2d(1), nn.Flatten(), nn.Linear(2 * d, d // 2),
-            nn.ReLU(), nn.Dropout(0.1), nn.Linear(d // 2, 3))
+            nn.ReLU(), Dropout(0.1), nn.Linear(d // 2, 3))
 
     def forward(self, frames, return_intermediates: bool = False) -> Dict[str, object]:
         n, d = frames.shape[0], self.dim

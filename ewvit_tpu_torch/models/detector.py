@@ -32,6 +32,12 @@ cast to the compute dtype, and the mode's head runs on the means.
   detector.py:259-265): its activations are recomputed in the backward, with
   every BN's momentum at 0 so that the running statistics move once per
   chunk, as in the functional JAX recompute.
+- With a mesh (``parallel.make_mesh``) a rank runs its rows of the global
+  batch and each chunk states them (:class:`Split`): dropout, stochastic
+  depth and the positional embedding follow the global row, and in train
+  mode BN takes its statistics over the batch group, so the rank's outputs
+  are its rows of the unsplit run's (the JAX package's GSPMD keeps the
+  single-device meaning the same way).
 """
 
 from __future__ import annotations
@@ -39,10 +45,11 @@ from __future__ import annotations
 import contextlib
 import functools
 import math
-from typing import Dict, List, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
@@ -50,7 +57,8 @@ from ewvit_tpu_torch.configs import ModelConfig
 from ewvit_tpu_torch.device import DeviceLike, compute_dtype, resolve_device
 from ewvit_tpu_torch.models.dama import DAMA
 from ewvit_tpu_torch.models.mwt import MWT
-from ewvit_tpu_torch.models.norm import calibrate_batchnorm_
+from ewvit_tpu_torch.models.norm import calibrate_batchnorm_, synced_batch_stats
+from ewvit_tpu_torch.models.rows import Dropout, global_rows
 from ewvit_tpu_torch.models.sfe import EfficientViT
 from ewvit_tpu_torch.ops.preprocess import preprocess_batch
 
@@ -86,9 +94,9 @@ class DeepfakeDetector(nn.Module):
                   pos_mode=cfg.pos_mode, backbone="b0", backbone_spec=cfg.b0_spec)
         self.sfe = EfficientViT(cfg.arch, output_mode="feature_map", **b0)
         self.sfe_cls = EfficientViT(cfg.arch, output_mode="cls", **b0)
-        self.fusion_gate = nn.Sequential(nn.Linear(2 * d, 2), nn.ReLU(), nn.Dropout(0.1))
+        self.fusion_gate = nn.Sequential(nn.Linear(2 * d, 2), nn.ReLU(), Dropout(0.1))
         self.classifier = nn.Sequential(
-            nn.Linear(d, 64), nn.ReLU(), nn.Dropout(0.3), nn.Linear(64, 1))
+            nn.Linear(d, 64), nn.ReLU(), Dropout(0.3), nn.Linear(64, 1))
 
     def forward(self, frames, mode: str = "dynamic") -> Dict[str, torch.Tensor]:
         """One flattened chunk ``[N, 3, H, W]`` -> the mode's per-frame outputs:
@@ -217,29 +225,72 @@ def _running_stats_frozen(bns: List[nn.modules.batchnorm._BatchNorm]):
             bn.momentum, bn.num_batches_tracked = momentum, tracked
 
 
-def _train_chunk(model: DeepfakeDetector, flat: torch.Tensor, mode: str, seed: int):
-    with seeded(seed, flat.device):
+class Split(NamedTuple):
+    """This rank's share of a global batch inside a forward: the global row
+    of each local row (``models/rows.global_rows``), the global row count,
+    and the process group over which train-mode BN takes its statistics
+    (``models/norm.synced_batch_stats``)."""
+    index: torch.Tensor
+    total: int
+    group: object
+
+
+@contextlib.contextmanager
+def _in_split(split: Optional[Split]):
+    if split is None:
+        yield
+        return
+    with global_rows(split.index, split.total), synced_batch_stats(split.group):
+        yield
+
+
+def _train_chunk(model: DeepfakeDetector, flat: torch.Tensor, mode: str, seed: int,
+                 split: Optional[Split] = None):
+    with seeded(seed, flat.device), _in_split(split):
         return model(flat, mode)
 
 
 def video_forward(model: DeepfakeDetector, x: torch.Tensor, *, mode: str = "dynamic",
-                  frame_chunk: int = 8, seed: int = 0,
-                  remat: Optional[bool] = None) -> Dict[str, torch.Tensor]:
+                  frame_chunk: int = 8, seed: int = 0, remat: Optional[bool] = None,
+                  mesh=None, frame_axis: bool = False) -> Dict[str, torch.Tensor]:
     """``x`` ``[B, K, 3, H, W]`` preprocessed frames -> the mode's head
     outputs: ``{'logits': [B, 1]}`` plus ``'fused', 'space', 'freq'``
     (``dynamic``) or ``'sfe', 'mwt'`` (``sfe_mwt``), each ``[B, dim]``.
 
     In eval mode it runs under ``no_grad``. In train mode it records the
     graph; ``seed`` seeds dropout and stochastic depth, and ``remat``
-    (default ``model.cfg.remat_frames``) checkpoints each chunk."""
+    (default ``model.cfg.remat_frames``) checkpoints each chunk.
+
+    ``mesh`` (``parallel.make_mesh``): ``x`` holds this rank's ``B/W`` clips
+    of a global batch of ``B`` (rows ``[i*B/W, (i+1)*B/W)`` for batch index
+    ``i``), and the outputs are this rank's rows of the global run's. Every
+    chunk states its global rows (dropout, stochastic depth, the positional
+    embedding) and, in train mode, takes BN statistics over the batch group.
+    ``frame_axis`` (eval only, serving): ``x`` holds this rank's ``K/F``
+    contiguous frames; the rank walks the global chunk grid over its frames
+    and the per-clip sums are all-reduced over the frames group before the
+    head."""
     if model.training:
+        if frame_axis and mesh is not None and mesh.frame_size > 1:
+            raise ValueError("training shards the batch only: a frames axis "
+                             "is not ported to training")
         return _train_video_forward(model, x, mode, frame_chunk, seed,
-                                    model.cfg.remat_frames if remat is None else remat)
+                                    model.cfg.remat_frames if remat is None else remat, mesh)
     with torch.no_grad():
-        return _eval_video_forward(model, x, mode, frame_chunk)
+        return _eval_video_forward(model, x, mode, frame_chunk, mesh, frame_axis)
 
 
-def _train_video_forward(model, x, mode, frame_chunk, seed, remat):
+def _batch_split(mesh, b: int, rows_per_clip: int, device) -> Optional[Split]:
+    """This rank's rows of a global batch of ``b * W`` clips of
+    ``rows_per_clip`` rows each (rank-major, so contiguous)."""
+    if mesh is None:
+        return None
+    first = mesh.batch_index * b * rows_per_clip
+    return Split(torch.arange(first, first + b * rows_per_clip, device=device),
+                 b * mesh.batch_size * rows_per_clip, mesh.batch_group)
+
+
+def _train_video_forward(model, x, mode, frame_chunk, seed, remat, mesh):
     b, k = x.shape[:2]
     chunk = min(frame_chunk, k)
     starts = range(0, k, chunk)
@@ -255,27 +306,51 @@ def _train_video_forward(model, x, mode, frame_chunk, seed, remat):
     for start, s in zip(starts, seeds):
         fr = x[:, start:start + chunk]
         n = fr.shape[1]                   # the tail chunk is smaller
-        out = run(model, fr.reshape(b * n, *x.shape[2:]), mode, s)
+        out = run(model, fr.reshape(b * n, *x.shape[2:]), mode, s,
+                  _batch_split(mesh, b, n, x.device))
         sums = {key: v + out[key].float().reshape(b, n, -1).sum(dim=1)
                 for key, v in sums.items()}
     dt = compute_dtype(model.cfg.compute_dtype)
-    with seeded(seeds[-1], x.device):
+    with seeded(seeds[-1], x.device), _in_split(_batch_split(mesh, b, 1, x.device)):
         return model.head({key: (v / k).to(dt) for key, v in sums.items()}, mode)
 
 
-def _eval_video_forward(model, x, mode, frame_chunk):
-    b, k = x.shape[:2]
+def _eval_video_forward(model, x, mode, frame_chunk, mesh=None, frame_axis=False):
+    """The unsplit loop pads its ragged tail chunk to full size; on a frames
+    axis a rank runs its part of each global chunk unpadded, with the
+    global rows ``b*chunk + (t mod chunk)`` of its clips ``b`` and frames
+    ``t``."""
+    b, k_local = x.shape[:2]
+    frames = mesh.frame_size if mesh is not None and frame_axis else 1
+    k = k_local * frames
+    f0 = mesh.frame_index * k_local if frames > 1 else 0
     chunk = min(frame_chunk, k)
+    b0 = mesh.batch_index * b if mesh is not None else 0
+    total = b * mesh.batch_size * chunk if mesh is not None else b * chunk
     sums = {key: torch.zeros(b, d, dtype=torch.float32, device=x.device)
             for key, d in feat_dims(model.cfg, mode).items()}
     for start in range(0, k, chunk):
-        fr = x[:, start:start + chunk]
-        valid = fr.shape[1]
-        if valid < chunk:
-            pad = fr.new_zeros((b, chunk - valid) + tuple(x.shape[2:]))
+        lo, hi = max(start, f0), min(start + chunk, k, f0 + k_local)
+        if lo >= hi:
+            continue
+        fr = x[:, lo - f0:hi - f0]
+        valid = hi - lo
+        width = chunk if frames == 1 else valid
+        if valid < width:
+            pad = fr.new_zeros((b, width - valid) + tuple(x.shape[2:]))
             fr = torch.cat([fr, pad], dim=1)
-        out = model(fr.reshape(b * chunk, *x.shape[2:]), mode)
+        split = None
+        if mesh is not None:
+            clips = torch.arange(b0, b0 + b, device=x.device)[:, None]
+            index = clips * chunk + (lo - start) + torch.arange(width, device=x.device)
+            split = Split(index.reshape(-1), total, mesh.batch_group)
+        with _in_split(split):
+            out = model(fr.reshape(b * width, *x.shape[2:]), mode)
         for key in sums:
-            sums[key] += out[key].float().reshape(b, chunk, -1)[:, :valid].sum(dim=1)
+            sums[key] += out[key].float().reshape(b, width, -1)[:, :valid].sum(dim=1)
+    if mesh is not None and frame_axis:
+        flat = torch.cat(list(sums.values()), dim=1)
+        torch.distributed.all_reduce(flat, group=mesh.frames_group)
+        sums = dict(zip(sums, flat.split([v.shape[1] for v in sums.values()], dim=1)))
     dt = compute_dtype(model.cfg.compute_dtype)
     return model.head({key: (v / k).to(dt) for key, v in sums.items()}, mode)

@@ -44,6 +44,7 @@ import torch.nn.functional as F
 
 from ewvit_tpu_torch.configs import B0_FULL, V2S_FULL, BackboneSpec
 from ewvit_tpu_torch.models.kept import KeepsWeights, version_key
+from ewvit_tpu_torch.models import rows
 from ewvit_tpu_torch.models.norm import BatchNorm2d
 from ewvit_tpu_torch.ops import extension
 from ewvit_tpu_torch.ops.dw_se import dw_bn_silu_mean_packed, pack_dwse
@@ -77,11 +78,13 @@ DROP_CONNECT_RATE = 0.2       # both backbones (ewvit_tpu/models/efficientnet.py
 
 def stochastic_depth(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
     """Row-mode stochastic depth on a residual branch (efficientnet.py:261-268):
-    one Bernoulli(keep) per row; a kept row is ``x / keep``, a dropped row 0."""
+    one Bernoulli(keep) per row; a kept row is ``x / keep``, a dropped row 0.
+    Under ``models/rows.global_rows`` the draw is for the global rows."""
     if not training or rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.empty((x.shape[0],) + (1,) * (x.dim() - 1), device=x.device).bernoulli_(keep)
+    mask = rows.draw((x.shape[0],) + (1,) * (x.dim() - 1),
+                     lambda shape: torch.empty(shape, device=x.device).bernoulli_(keep))
     return torch.where(mask.bool(), x / keep, torch.zeros_like(x))
 
 

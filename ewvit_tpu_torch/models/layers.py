@@ -7,7 +7,9 @@ reference names: ``Transformer.layers.i.{0,1}.{norm,fn}``, ``Attention.to_qkv``
 
 GELU is the exact erf form; LayerNorm eps is 1e-6 (flax's default, which the
 JAX package uses throughout). Attention logits are scaled and soft-maxed in
-fp32, then cast back to the compute dtype.
+fp32, then cast back to the compute dtype. Dropout is ``models/rows.Dropout``
+(``nn.Dropout`` with masks that do not depend on how a batch is split over
+ranks).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch.nn as nn
 
 from ewvit_tpu_torch.models.kept import KeepsWeights, version_key
 from ewvit_tpu_torch.models.norm import LayerNorm
+from ewvit_tpu_torch.models.rows import Dropout
 from ewvit_tpu_torch.ops import extension
 from ewvit_tpu_torch.ops.fused_attention import (
     cluster_route,
@@ -32,8 +35,8 @@ class FeedForward(nn.Module):
     def __init__(self, dim: int, hidden_dim: int, dropout: float = 0.0):
         super().__init__()
         self.net = nn.Sequential(
-            nn.Linear(dim, hidden_dim), nn.GELU(), nn.Dropout(dropout),
-            nn.Linear(hidden_dim, dim), nn.Dropout(dropout))
+            nn.Linear(dim, hidden_dim), nn.GELU(), Dropout(dropout),
+            nn.Linear(hidden_dim, dim), Dropout(dropout))
 
     def forward(self, x):
         return self.net(x)
@@ -60,7 +63,7 @@ class Attention(nn.Module):
         self.heads = heads
         self.to_qkv = nn.Linear(dim, inner * 3, bias=False)
         project_out = not (heads == 1 and dim_head == dim)
-        self.to_out = (nn.Sequential(nn.Linear(inner, dim), nn.Dropout(dropout))
+        self.to_out = (nn.Sequential(nn.Linear(inner, dim), Dropout(dropout))
                        if project_out else nn.Identity())
 
     def forward(self, x):
@@ -106,7 +109,7 @@ class CrossAttention(nn.Module):
         self.to_q = nn.Linear(dim, inner, bias=False)
         self.to_kv = nn.Linear(dim, inner * 2, bias=False)
         project_out = not (heads == 1 and dim_head == dim)
-        self.to_out = (nn.Sequential(nn.Linear(inner, dim), nn.Dropout(dropout))
+        self.to_out = (nn.Sequential(nn.Linear(inner, dim), Dropout(dropout))
                        if project_out else nn.Identity())
 
     def forward(self, x, context=None, kv_include_self: bool = False,

@@ -15,7 +15,9 @@ Positional embedding quirk (reference sfe.py:158-159): ``pos_embedding`` is
 ``[emb_dim, 1, dim]`` and row ``i`` of the FLATTENED batch gets
 ``pos_embedding[i]``. ``pos_mode``: ``"reference"`` caps the flattened batch
 at ``emb_dim``; ``"tile"`` uses row ``i % emb_dim``; ``"row0"`` gives every
-row ``pos_embedding[0]``.
+row ``pos_embedding[0]``. ``i`` is the row of the global flattened chunk:
+under ``models/rows.global_rows`` (a rank's rows of a chunk split over
+ranks) the stated global rows, and the cap checks the global count.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import torch.nn as nn
 
 from ewvit_tpu_torch.configs import B0_FULL, V2S_FULL, ArchConfig, BackboneSpec
 from ewvit_tpu_torch.models.efficientnet import EfficientNetB0, EfficientNetV2S
+from ewvit_tpu_torch.models import rows
 from ewvit_tpu_torch.models.layers import Transformer
 
 
@@ -53,7 +56,7 @@ class EfficientViT(nn.Module):
         self.pos_embedding = nn.Parameter(torch.empty(a.emb_dim, 1, a.dim))
         self.patch_to_embedding = nn.Linear(patch_dim, a.dim)
         self.cls_token = nn.Parameter(torch.empty(1, 1, a.dim))
-        self.dropout = nn.Dropout(a.emb_dropout)
+        self.dropout = rows.Dropout(a.emb_dropout)
         self.transformer = Transformer(a.dim, a.depth, a.heads, a.dim_head,
                                        a.mlp_dim, a.dropout)
         self.mlp_head = nn.Sequential(nn.Linear(a.dim, a.mlp_dim), nn.ReLU(),
@@ -70,14 +73,18 @@ class EfficientViT(nn.Module):
         y = self.patch_to_embedding(y)
         x = torch.cat([self.cls_token.expand(n, 1, a.dim).to(y.dtype), y], dim=1)
 
-        if n > a.emb_dim and self.pos_mode == "reference":
+        split = rows.current(n)      # this rank's rows of a global chunk
+        total = n if split is None else split.total
+        if total > a.emb_dim and self.pos_mode == "reference":
             raise ValueError(
-                f"flattened batch {n} exceeds emb_dim={a.emb_dim}: the "
+                f"flattened batch {total} exceeds emb_dim={a.emb_dim}: the "
                 "reference's batch-indexed positional embedding only supports "
                 "up to emb_dim rows (pos_mode='tile' lifts the cap)")
         pos = self.pos_embedding
         if self.pos_mode == "row0":
             pos = pos[0:1]
+        elif split is not None:
+            pos = pos[split.index % a.emb_dim]
         elif n > a.emb_dim:
             pos = pos[torch.arange(n, device=pos.device) % a.emb_dim]
         else:

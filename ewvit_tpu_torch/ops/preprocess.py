@@ -12,7 +12,8 @@ contrast=0.01)`` per image, as the JAX package's ``color_jitter``
 brightness and contrast in an order drawn per image, contrast blending with
 the mean of the ITU-R 601-2 luma, each result clipped to ``[0, 1]``. It is
 split into :func:`draw_jitter` (the random draws, from an explicit
-``torch.Generator``) and :func:`apply_jitter` (deterministic), so that the
+``torch.Generator``; under ``models/rows.global_rows`` drawn for the global
+batch and this rank's rows taken) and :func:`apply_jitter` (deterministic), so that the
 same draws can be replayed.
 """
 
@@ -21,6 +22,8 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+
+from ewvit_tpu_torch.models import rows
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -33,6 +36,10 @@ def draw_jitter(batch_shape: Tuple[int, ...], generator: torch.Generator,
     """Per-image (brightness factor, contrast factor, brightness first?),
     each of ``batch_shape``, on the generator's device."""
     dev = generator.device
+    split = rows.current(batch_shape[0])
+    if split is not None:         # this rank's rows of the global draws
+        return tuple(t.index_select(0, split.index) for t in draw_jitter(
+            (split.total, *batch_shape[1:]), generator, brightness, contrast))
 
     def uniform(r):
         return (1.0 - r) + 2.0 * r * torch.rand(batch_shape, generator=generator, device=dev)

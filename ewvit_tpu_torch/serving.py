@@ -15,7 +15,17 @@
 - ``from_checkpoint`` builds the engine from a ``.pth``/``.pt`` file in the
   reference layout (``checkpoint.load_model``).
 
-Data-parallel serving (``mesh=``) waits.
+- ``mesh=`` (``parallel.make_mesh``) serves data-parallel, as the JAX
+  engine's ``mesh=`` (serving.py:43-85): every rank is given the same host
+  batch (the JAX single controller holds it whole); the tail batch is
+  zero-padded to the batch divisor (dcn x data); the rank copies to its card
+  only its rows and, with ``frame_axis``, its ``K/F`` contiguous frames (a
+  ``K`` that the frames axis does not divide raises); its forward walks the
+  global chunk grid over them, the per-clip sums are all-reduced over the
+  frames group before the head, the probabilities are all-gathered over the
+  batch group, and every rank returns the ``[B]`` of the unsplit run, the
+  pad rows dropped. The weights are broadcast from rank 0 before
+  ``cast_for_inference``.
 """
 
 from __future__ import annotations
@@ -51,12 +61,17 @@ def cast_for_inference(model: nn.Module, dtype: torch.dtype) -> nn.Module:
 
 class InferenceEngine:
     def __init__(self, model: DeepfakeDetector, *, mode: str = "dynamic",
-                 frame_chunk: int = 32, device: DeviceLike = "cuda"):
+                 frame_chunk: int = 32, device: DeviceLike = "cuda", mesh=None,
+                 frame_axis: bool = False):
         self.mode = check_mode(mode)
-        self.device = resolve_device(device)
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.dtype = compute_dtype(model.cfg.compute_dtype)
-        self.model = cast_for_inference(model.to(self.device).eval(), self.dtype)
+        model = model.to(self.device).eval()
+        if mesh is not None:
+            mesh.replicate_(model)
+        self.model = cast_for_inference(model, self.dtype)
         self.frame_chunk = frame_chunk
+        self.mesh, self.frame_axis = mesh, bool(frame_axis and mesh is not None)
 
     @classmethod
     def from_checkpoint(cls, path: str, cfg: Optional[ModelConfig] = None, *,
@@ -65,7 +80,27 @@ class InferenceEngine:
         (``checkpoint.load_model``); ``kw`` go to the constructor."""
         return cls(load_model(path, cfg, device=device), device=device, **kw)
 
+    def _local(self, clips_u8: np.ndarray) -> np.ndarray:
+        """This rank's rows (and frames) of a host batch, the tail batch
+        zero-padded to the batch divisor."""
+        m = self.mesh
+        b, k = clips_u8.shape[:2]
+        frames = m.frame_size if self.frame_axis else 1
+        if k % frames:
+            raise ValueError(
+                f"frame count {k} not divisible by the mesh 'frames' axis ({frames}); "
+                "frame padding would bias the video mean: resample the clip instead")
+        pad = -b % m.batch_size
+        if pad:
+            clips_u8 = np.concatenate(
+                [clips_u8, np.zeros((pad, *clips_u8.shape[1:]), clips_u8.dtype)])
+        kf = k // frames
+        f0 = m.frame_index * kf if self.frame_axis else 0
+        return clips_u8[m.local_rows(b + pad), f0:f0 + kf]
+
     def _place(self, clips_u8: np.ndarray) -> torch.Tensor:
+        if self.mesh is not None:
+            clips_u8 = self._local(clips_u8)
         host = torch.from_numpy(np.ascontiguousarray(clips_u8))
         if host.dtype != torch.uint8:
             raise ValueError(f"expected uint8 clips, got {host.dtype}")
@@ -76,28 +111,32 @@ class InferenceEngine:
     @torch.no_grad()
     def _forward(self, clips: torch.Tensor) -> torch.Tensor:
         x = preprocess_batch(clips, self.dtype)
-        k = clips.shape[1]
+        k = clips.shape[1] * (self.mesh.frame_size if self.frame_axis else 1)
         out = video_forward(self.model, x, mode=self.mode,
-                            frame_chunk=min(self.frame_chunk, k))
-        return torch.sigmoid(out["logits"].float())[:, 0]
+                            frame_chunk=min(self.frame_chunk, k), mesh=self.mesh,
+                            frame_axis=self.frame_axis)
+        probs = torch.sigmoid(out["logits"].float())[:, 0]
+        return self.mesh.gather(probs) if self.mesh is not None else probs
 
     def _dispatch(self, clips_u8: np.ndarray):
-        """Enqueue one batch; returns (host tensor, completion event or None)."""
+        """Enqueue one batch; returns (host tensor, completion event or None,
+        rows to keep)."""
         probs = self._forward(self._place(clips_u8))
+        n = clips_u8.shape[0]
         if self.device.type != "cuda":
-            return probs, None
+            return probs, None, n
         host = torch.empty(probs.shape, dtype=probs.dtype, pin_memory=True)
         host.copy_(probs, non_blocking=True)
         done = torch.cuda.Event()
         done.record()
-        return host, done
+        return host, done, n
 
     @staticmethod
     def _collect(pending) -> np.ndarray:
-        host, done = pending
+        host, done, n = pending
         if done is not None:
             done.synchronize()
-        return host.numpy().copy()
+        return host.numpy()[:n].copy()
 
     def warmup(self, batch: int, frames: int, image_size: int = 224) -> None:
         clip = np.zeros((batch, frames, image_size, image_size, 3), np.uint8)

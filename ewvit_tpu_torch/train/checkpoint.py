@@ -14,9 +14,15 @@ its start epoch and loops from 0 all the same).
 
 - **Crash-safe overwrites** (``_write_swap``, the JAX package's :96-119):
   write ``<final>.swap-in``, move the previous file to ``<final>.old``,
-  move the new one into place and delete ``.old``. A lone ``.old`` (a crash
-  between the two moves) is promoted back before anything is written, and
-  :meth:`restore` falls back to it.
+  move the new one into place and delete ``.old``. A crash between the two
+  moves leaves ``.old`` and a complete ``.swap-in`` (``torch.save`` finished
+  before the first move) and no final file: the ``.swap-in`` is the newer
+  file, so the next save and :meth:`read` promote it and drop ``.old``.
+  This diverges on purpose from the JAX package (checkpoint.py:95-119),
+  which deletes the ``.swap-in`` and promotes ``.old``, so that a resume
+  after such a crash repeated an epoch. A lone ``.old`` (no ``.swap-in``) is
+  promoted back before anything is written, and :meth:`read` falls back to
+  it.
 - **Async saves.** ``_save`` copies every tensor into pinned host memory
   with ``non_blocking`` on the current stream and records an event: stream
   order puts the caller's next in-place ``optimizer.step`` after the copy.
@@ -82,8 +88,9 @@ class CheckpointManager:
         """Write ``obj`` to ``final``, keeping any file already at ``final``
         until the replacement is wholly on disk."""
         tmp, old = final + ".swap-in", final + ".old"
+        self._finish_swap(final)
         if os.path.exists(tmp):
-            os.remove(tmp)
+            os.remove(tmp)      # a save that crashed while writing it
         if os.path.exists(old):
             if os.path.exists(final):
                 os.remove(old)
@@ -98,6 +105,15 @@ class CheckpointManager:
             os.remove(old)
         else:
             os.replace(tmp, final)
+
+    @staticmethod
+    def _finish_swap(final: str) -> None:
+        """A swap stopped between its two moves left ``.old`` and a complete
+        ``.swap-in`` and no ``final``: move the ``.swap-in`` into place."""
+        tmp, old = final + ".swap-in", final + ".old"
+        if not os.path.exists(final) and os.path.exists(tmp) and os.path.exists(old):
+            os.replace(tmp, final)
+            os.remove(old)
 
     def _save(self, model: nn.Module, optimizer: torch.optim.Optimizer, epoch: int,
               best_val_auc: float, name: str) -> str:
@@ -155,12 +171,24 @@ class CheckpointManager:
                 optimizer: Optional[torch.optim.Optimizer] = None) -> Tuple[int, float]:
         """Load the checkpoint at ``path`` into ``model`` (parameters and BN
         statistics) and ``optimizer`` (moments, step counts and ``count``).
-        Returns (the next epoch to run, the best val AUC). If ``path`` is
-        missing but ``<path>.old`` survived an interrupted swap, that is read."""
+        Returns (the next epoch to run, the best val AUC)."""
+        return self.apply(self.read(path), model, optimizer)
+
+    def read(self, path: str) -> Dict:
+        """The checkpoint at ``path`` on the host. A swap stopped between its
+        two moves is finished first (its ``.swap-in`` is the newer file); if
+        ``path`` is still missing but ``<path>.old`` survived, that is read."""
         path = os.path.abspath(path)
+        self._finish_swap(path)
         if not os.path.exists(path) and os.path.exists(path + ".old"):
             path = path + ".old"
-        obj = torch.load(path, map_location="cpu", weights_only=True)
+        return torch.load(path, map_location="cpu", weights_only=True)
+
+    @staticmethod
+    def apply(obj: Dict, model: nn.Module,
+              optimizer: Optional[torch.optim.Optimizer] = None) -> Tuple[int, float]:
+        """Load a checkpoint that :meth:`read` returned; returns (the next
+        epoch, the best val AUC)."""
         model.load_state_dict(obj["model_state_dict"], strict=True)
         if optimizer is not None:
             optimizer.load_state_dict(obj["optimizer_state_dict"])

@@ -18,6 +18,20 @@ reference's eager loop (train.py:93-140):
   gradient (one the mode does not use) gets a zero one, as ``jax.grad``
   gives it; then one optimizer update.
 
+With ``mesh`` (``parallel.make_mesh``, the batch axis only) the rank holds
+its ``B/W`` clips of each micro-batch of ``B`` (``Mesh.shard``), as the JAX
+step's batch sharding gives each device its rows, and the step computes the
+global one: the forward states its global rows and syncs train-mode BN over
+the batch group (``models/detector.video_forward``); the video-level outputs
+are gathered over the batch group (differentiably: the backward of the
+gather is a reduce-scatter) and ``combined_loss`` runs on the global batch on
+every rank, so the orthogonality loss is the global cross-covariance's;
+after the backward, one all-reduce of the fp32 gradients divided by W, and
+the optimizer step, leave every rank's parameters identical. The model is
+not wrapped in ``DistributedDataParallel``: ``video_forward`` calls it once
+per chunk (and the head once) under non-reentrant checkpoint before one
+backward, which DDP's reducer does not expect.
+
 The JAX package's ``remat_policy``, ``grad_dtype`` and ``unroll`` have no
 counterpart here (ROADMAP).
 """
@@ -28,6 +42,7 @@ import functools
 from typing import Dict, Optional
 
 import torch
+from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
 from ewvit_tpu_torch.device import compute_dtype
 from ewvit_tpu_torch.models.detector import DeepfakeDetector, chunk_seeds, video_forward
@@ -38,18 +53,24 @@ def train_step(model: DeepfakeDetector, optimizer: torch.optim.Optimizer,
                frames: torch.Tensor, labels: torch.Tensor, *, seed: int,
                mode: str = "dynamic", frame_chunk: int = 8, accum_steps: int = 1,
                pos_weight: float = 1.0, epoch: int = 0, max_epochs: int = 30,
-               remat: Optional[bool] = None) -> Dict[str, torch.Tensor]:
+               remat: Optional[bool] = None, mesh=None) -> Dict[str, torch.Tensor]:
     """One update; returns ``{'loss', 'cls_loss', 'orth_loss'}`` (fp32 means
     over the micro-batches) and ``'preds'`` ``[accum*B]`` (the training
     forward's sigmoid), detached, on the model's device.
 
     ``model`` is put in train mode and must hold fp32 parameters;
-    ``optimizer`` comes from ``train.optimizer.make_optimizer``."""
+    ``optimizer`` comes from ``train.optimizer.make_optimizer``. With
+    ``mesh``, ``frames`` and ``labels`` are this rank's rows
+    (``mesh.shard(global, groups=accum_steps)``) and ``preds`` are the
+    global ones."""
     g = accum_steps
     bt = frames.shape[0]
     if bt % g:
         raise ValueError(f"batch {bt} is not divisible by accum_steps {g}")
     b = bt // g
+    if mesh is not None and mesh.frame_size > 1:
+        raise ValueError("training shards the batch only: a frames axis is not "
+                         "ported to training")
     dev = next(model.parameters()).device
     if frames.device != dev or labels.device != dev:
         raise ValueError(f"frames and labels must be on the model's device {dev}")
@@ -68,7 +89,10 @@ def train_step(model: DeepfakeDetector, optimizer: torch.optim.Optimizer,
         fr, lb = frames[i * b:(i + 1) * b], labels[i * b:(i + 1) * b]
         with torch.autocast(dev.type, dtype=dt, enabled=dt != torch.float32):
             out = video_forward(model, fr, mode=mode, frame_chunk=frame_chunk, seed=s,
-                                remat=remat)
+                                remat=remat, mesh=mesh)
+        if mesh is not None:      # the losses of the global batch
+            out = {k: mesh.gather(v) for k, v in out.items()}
+            lb = mesh.gather(lb)
         loss, parts = combined_loss(out, lb, criterion, epoch, max_epochs)
         loss.backward()
         for k, v in (("loss", loss), ("cls_loss", parts["cls_loss"]),
@@ -79,7 +103,12 @@ def train_step(model: DeepfakeDetector, optimizer: torch.optim.Optimizer,
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
-    if g > 1:
-        torch._foreach_div_([p.grad for p in params], float(g))
+    grads = [p.grad for p in params]
+    if mesh is not None:
+        flat = _flatten_dense_tensors(grads)
+        mesh.all_reduce_(flat).div_(float(g * mesh.batch_size))
+        torch._foreach_copy_(grads, _unflatten_dense_tensors(flat, grads))
+    elif g > 1:
+        torch._foreach_div_(grads, float(g))
     optimizer.step()
     return {**{k: v / g for k, v in sums.items()}, "preds": torch.cat(preds)}

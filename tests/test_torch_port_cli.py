@@ -27,6 +27,17 @@ COMMON = ["--tiny", "--device", "cpu", "--frame-count", "2", "--batch-size", "2"
           "--num-workers", "0"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's torch work: the suite runs in
+    several worker processes that share the cores, and torch's default of
+    one OpenMP thread per core oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _root_eval_module():
     spec = importlib.util.spec_from_file_location("root_eval_cli",
                                                   os.path.join(ROOT_DIR, "eval.py"))
@@ -117,16 +128,59 @@ def test_eval_cli_other_datasets(trained, tmp_path, dataset):
     assert all(np.isfinite(r["loss"]) for r in got["rows"])
 
 
+def _close(a, b, path=""):
+    """``a`` equals ``b``, floats within 1e-5 relative (wall times, the
+    ``seconds`` keys, excepted)."""
+    if isinstance(a, dict):
+        assert a.keys() == b.keys(), path
+        for k in a:
+            if k != "seconds":
+                _close(a[k], b[k], f"{path}.{k}")
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b), path
+        for i, (x, y) in enumerate(zip(a, b)):
+            _close(x, y, f"{path}[{i}]")
+    elif isinstance(a, float):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-7, err_msg=path)
+    else:
+        assert a == b, path
+
+
 @pytest.mark.parametrize("cli", [cli_train, cli_eval])
-def test_mesh_raises(cli, tmp_path):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        cli.main(["--mesh", "--model-path", str(tmp_path / "m.pth"), *COMMON]
-                 if cli is cli_eval else ["--mesh", *COMMON])
+def test_mesh_world_of_one(cli, trained, tmp_path):
+    """``--mesh`` without torchrun's environment: a world of one over gloo,
+    whose output is the run's without ``--mesh``: the eval rows and files
+    equal, the train history within 1e-5. Train-mode BN takes its
+    statistics through the mesh's all-reduces, in fp32 where torch's CPU BN
+    sums in fp64, so gradients at noise level differ, and Adam turns each
+    into a step of about lr: the run trains at lr 1e-6, where that moves
+    the val loss by less than 1e-5. The process group is torn down at the
+    end."""
+    root, ckpts, _, _, _ = trained
+    if cli is cli_eval:
+        args = ["--root", root, "--model-path", os.path.join(ckpts, "checkpoint_2.pth"),
+                "--dataset", "ff++", *COMMON]
+    else:
+        args = ["--root", root, "--epochs", "1", "--lr", "1e-6", *COMMON]
+    runs = {}
+    for name, extra in (("plain", []), ("mesh", ["--mesh"])):
+        out = str(tmp_path / name)
+        runs[name] = cli.main(args + ["--output", out] + extra)
+        assert not torch.distributed.is_initialized()
+    if cli is cli_eval:
+        assert runs["mesh"] == runs["plain"]
+        for name in ("eval_results.csv", "confusion_matrices.json"):
+            with open(tmp_path / "mesh" / name) as a, open(tmp_path / "plain" / name) as b:
+                assert a.read() == b.read(), name
+    else:
+        _close(runs["mesh"], runs["plain"])
+        assert sorted(os.listdir(tmp_path / "mesh" / "checkpoints")) == \
+            sorted(os.listdir(tmp_path / "plain" / "checkpoints"))
 
 
 def test_new_modules_import_no_jax_and_no_cv2():
-    """The training run's modules and the measuring, ablation and plotting
-    entry points import nothing of JAX or the JAX package, no yaml or
+    """The training run's modules, the measuring, ablation and plotting
+    entry points and data parallelism import nothing of JAX or the JAX package, no yaml or
     sklearn, matplotlib only inside a plotting call and cv2 only where a
     frame is decoded or resized (so the package imports on a machine
     without them)."""
@@ -136,7 +190,8 @@ def test_new_modules_import_no_jax_and_no_cv2():
         "ewvit_tpu_torch.cli.test, ewvit_tpu_torch.cli.bench, "
         "ewvit_tpu_torch.cli.calculate_gflops, ewvit_tpu_torch.cli.ablation, "
         "ewvit_tpu_torch.cli.plot_celebdf_roc, ewvit_tpu_torch.cli.visualize_feature_maps, "
-        "ewvit_tpu_torch.utils.visualization, ewvit_tpu_torch.utils.metrics\n"
+        "ewvit_tpu_torch.utils.visualization, ewvit_tpu_torch.utils.metrics, "
+        "ewvit_tpu_torch.parallel\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'ewvit_tpu', 'yaml', 'cv2', 'matplotlib', 'sklearn', "
         "'seaborn')]\n"

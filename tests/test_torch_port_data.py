@@ -10,6 +10,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from ewvit_tpu import evaluation as jeval
 from ewvit_tpu.data import datasets as jds
@@ -28,6 +29,17 @@ cv2 = cv2_module()
 pytestmark = pytest.mark.skipif(cv2 is None, reason="cv2 writes the frame trees")
 
 FRAMES = 6
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's torch work: the suite runs in
+    several worker processes that share the cores, and torch's default of
+    one OpenMP thread per core oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _transform(pkg, detector="none"):

@@ -31,6 +31,17 @@ from ewvit_tpu_torch.utils.metrics import binary_metrics
 from test_torch_port_model import _fill
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's torch work: the suite runs in
+    several worker processes that share the cores, and torch's default of
+    one OpenMP thread per core oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _close(a, b, tol, what="", rtol=0.0):
     np.testing.assert_allclose(np.asarray(a, np.float64), np.asarray(b, np.float64),
                                atol=tol, rtol=rtol, err_msg=what)

@@ -23,6 +23,17 @@ from ewvit_tpu_torch.models.mwt import MWT
 from ewvit_tpu_torch.models.norm import calibrate_batchnorm_
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's torch work: the suite runs in
+    several worker processes that share the cores, and torch's default of
+    one OpenMP thread per core oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _edit(module, what):
     """Apply edit ``what`` in place to ``module``'s tensor of that name (or,
     for ``load:<child>``, load a changed state dict into that child)."""

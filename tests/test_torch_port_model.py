@@ -48,6 +48,17 @@ PCFG = pc.ModelConfig.micro().replace(
     use_pallas_dwt=True, **FLAGS)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's torch work: the suite runs in
+    several worker processes that share the cores, and torch's default of
+    one OpenMP thread per core oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _fill(variables, seed):
     g = np.random.default_rng(seed)
 

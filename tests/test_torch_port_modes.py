@@ -57,6 +57,17 @@ OFF = dict(use_pallas_dwse=False, use_pallas_dama=False, use_fused_mwt_tail=Fals
            use_pallas_dwt=False)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's torch work: the suite runs in
+    several worker processes that share the cores, and torch's default of
+    one OpenMP thread per core oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _spec(mod, base, *extra):
     return mod.BackboneSpec(base.blocks + tuple(mod.BlockCfg(**e) for e in extra),
                             stem_ch=base.stem_ch, head_ch=base.head_ch)

@@ -95,6 +95,17 @@ PCFG = pc.ModelConfig.micro().replace(
     **ALL_FLAGS)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's torch work: the suite runs in
+    several worker processes that share the cores, and torch's default of
+    one OpenMP thread per core oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def no_dropout(model: nn.Module) -> nn.Module:
     """Every dropout and stochastic-depth rate of ``model`` to 0."""
     for m in model.modules():

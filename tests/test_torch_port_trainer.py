@@ -71,6 +71,17 @@ TCFG = pc.TrainConfig(batch_size=2, epochs=2, lr=1e-3, accum_steps=2, seed=5)
 K = 3                       # frames a clip: chunks of 2 and a ragged tail of 1
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's torch work: the suite runs in
+    several worker processes that share the cores, and torch's default of
+    one OpenMP thread per core oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 class Clips:
     """In-memory map-style dataset of seeded uint8 clips, labels alternating."""
 
@@ -193,6 +204,37 @@ def test_checkpoint_old_fallback_and_double_crash(small, tmp_path, monkeypatch):
     assert sorted(os.listdir(tmp_path)) == ["best_model.pth"]
     assert mgr.restore(str(tmp_path / "best_model.pth"), m2, o2) == (6, pytest.approx(0.7))
     mgr.save_best(model, opt, epoch=7, best_val_auc=0.8)      # a clean save leaves no debris
+    assert sorted(os.listdir(tmp_path)) == ["best_model.pth"]
+
+
+@pytest.mark.parametrize("resume_by", ["restore", "next_save"])
+def test_checkpoint_crash_between_moves_resumes_newer(small, tmp_path, monkeypatch, resume_by):
+    """A crash after the previous file moved to ``.old`` and before the
+    ``.swap-in`` moved into place leaves both: the ``.swap-in`` is complete
+    and newer, so ``restore`` (or the next save, even if it crashes while
+    writing) promotes it, and the resume starts after the newer epoch."""
+    model, opt = small
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save_best(model, opt, epoch=3, best_val_auc=0.6)
+    real = os.replace
+
+    def stop_before_second_move(src, dst):
+        if str(src).endswith(".swap-in"):
+            raise RuntimeError("simulated crash between the two moves")
+        real(src, dst)
+
+    monkeypatch.setattr(pckpt.os, "replace", stop_before_second_move)
+    with pytest.raises(RuntimeError, match="between the two moves"):
+        mgr.save_best(model, opt, epoch=4, best_val_auc=0.9)
+    monkeypatch.undo()
+    assert sorted(os.listdir(tmp_path)) == ["best_model.pth.old", "best_model.pth.swap-in"]
+    if resume_by == "next_save":
+        monkeypatch.setattr(pckpt.torch, "save", _explode)
+        with pytest.raises(RuntimeError, match="simulated crash"):
+            mgr.save_best(model, opt, epoch=5, best_val_auc=0.95)
+        monkeypatch.undo()
+    m2, o2 = _fresh(small)
+    assert mgr.restore(str(tmp_path / "best_model.pth"), m2, o2) == (5, pytest.approx(0.9))
     assert sorted(os.listdir(tmp_path)) == ["best_model.pth"]
 
 

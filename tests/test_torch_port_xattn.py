@@ -30,6 +30,17 @@ from ewvit_tpu_torch.ops.fused_attention import (
 from test_torch_port_ops import xattn_case  # noqa: F401  (fixture)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's torch work: the suite runs in
+    several worker processes that share the cores, and torch's default of
+    one OpenMP thread per core oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _weights(d, blocks, seed=0):
     g = np.random.default_rng(seed)
     mats = torch.from_numpy(g.standard_normal((blocks, d, 4 * d)).astype(np.float32))
