@@ -99,10 +99,10 @@ Phases (any failure raises and the exit code is nonzero):
               bf16 dynamic steps of [4, 40, 224, 224, 3], accum 2, with and
               without the mesh (the loss finite and falling, K1 as derived,
               K2-K4 never; ms per step; the bytes of the gradient all-reduce
-              per update); then `torchrun --nproc-per-node=1 -m
-              ewvit_tpu_torch.cli.train --mesh --tiny` for 1 epoch and
-              `cli.eval --mesh` on the fit phase's tree, which is then
-              removed;
+              per update); then, in one process under `torchrun
+              --nproc-per-node=1`, cli.train --mesh --tiny for 1 epoch of
+              4-frame clips and cli.eval --mesh on its checkpoint, on the fit
+              phase's tree, which is then removed;
 9. clis    -- the measuring, ablation and visualisation entry points. It
               prints whether matplotlib imports (with it each step runs the
               CLI's main with its plots, without it the compute half, and
@@ -123,9 +123,23 @@ Phases (any failure raises and the exit code is nonzero):
               frame (visualize_feature_maps.collect in fp32 with the four
               flags, exact K1-K3 launches, held to the same function on the
               CPU within atol 1e-3); and the phase's wall time;
-10. report -- one JSON line describing every kernel (with dp_launches, the
-              dp phase's counts), then the final line
-              {"ok": true, "device": {...}}.
+10. learn  -- the learning proof's flagship recipe
+              (cli/learning_proof.prove(flagship=True) with a ModelConfig()
+              whose four kernel flags are on): a checkerboard FF++ tree of
+              8-frame 450-px PNGs in a temporary directory, decoded with the
+              face detector off as prove runs the CLIs, cli.train for 25
+              epochs (batch 4, accum 2, lr 3e-4, no remat; K1 in the training
+              forward, K1-K4 in the val epochs) and cli.eval on its
+              best_model.pth (K1-K4); every one of the five checks must pass
+              (final loss <= 0.05, loss declined, best val AUC >= 0.99, test
+              AUC >= 0.99, test ACC >= 0.95), and each train epoch, val epoch
+              and eval pass launches exactly the derived K1-K4 counts. It
+              prints the losses, AUCs and accuracy, the phase's wall time,
+              seconds per epoch, ms per update, host decode frames/s and the
+              seconds each checkpoint save blocked the loop;
+11. report -- one JSON line describing every kernel (with dp_launches and
+              learn_launches, the dp and learn phases' counts), then the final
+              line {"ok": true, "device": {...}}.
 
 Without a CUDA device, or run outside the repository, it exits nonzero and
 prints no result. It imports nothing of JAX or of the ewvit_tpu package.
@@ -142,6 +156,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -405,6 +420,13 @@ def phase_kernels(dev):
     report.append(tm.entry(
         name="haar_dwt2d", route="cuda", source="ewvit_tpu_torch/csrc/haar.cu",
         replaces="ewvit_tpu/ops/haar.py:163", max_abs_err=max(errs)))
+    # a rank's empty share of a training chunk on a frames axis
+    before = extension.LAUNCHES["haar_dwt2d"]
+    ll, hf = haar_dwt2d(torch.empty(0, 3, 224, 224, device=dev, dtype=torch.bfloat16))
+    if (tuple(ll.shape), tuple(hf.shape)) != ((0, 3, 112, 112), (0, 9, 112, 112)) or \
+            extension.LAUNCHES["haar_dwt2d"] != before:
+        fail(f"haar_dwt2d on zero rows: {tuple(ll.shape)}, {tuple(hf.shape)}")
+    print("[kernels] haar_dwt2d on zero rows: empty outputs, no launch")
 
     report.append(dwse_kernel(dev, g))
 
@@ -1350,34 +1372,38 @@ def fit_trainer(cfg, state, ckpt_dir, train_ds, steps_per_epoch):
                    model=train_model(cfg, state))
 
 
-def check_fit_epochs(cfg, model, counted, val_clips):
+def check_epochs(phase, cfg, model, counted, *, frames, batch, chunk, remat):
     """Every train and val epoch's launches and folds against the derived
     counts: a train epoch launches K1 ``k1_per_step`` times per update and
     nothing of VAL_ONLY; a val epoch launches K1 ``levels`` times, K2 once
-    per stride-1 SE block of DAMA's V2-S, K3 and K4 once, per 64-row chunk,
-    and folds or packs each kept module once."""
+    per stride-1 SE block of DAMA's V2-S, K3 and K4 once, per chunk of each
+    of its batches, and folds or packs each kept module once. Returns each
+    epoch's K1-K4 counts."""
     dwse = sum(1 for m in model.dama.modules() if isinstance(m, DepthwiseSE) and m.fuse_dwse)
-    per_chunk = dict(haar_dwt2d=cfg.levels, dw_bn_silu_mean=dwse,
-                     fused_multiscale_winograd=1, fused_bidirectional_cross_attention=1)
-    val_chunks = -(-val_clips // FIT_BATCH) * -(-FIT_FRAMES // FIT_CHUNK)
+    counts = []
     for i, ep in enumerate(counted.epochs):
         if ep["kind"] == "train":
             want = {k: 0 for k in VAL_ONLY}
-            want["haar_dwt2d"] = sum(k1_per_step(cfg, "dynamic", FIT_FRAMES, m, FIT_CHUNK)
+            want["haar_dwt2d"] = sum(k1_per_step(cfg, "dynamic", frames, m, chunk, remat)
                                      for m in ep["micro"])
             if not ep["micro"]:
-                fail(f"fit: train epoch {i // 2 + 1} took no step")
+                fail(f"{phase}: train epoch {i // 2 + 1} took no step")
         else:
-            want = {k: v * val_chunks for k, v in per_chunk.items()}
+            clips = len(ep["result"].metrics["labels"])
+            want = {k: v * -(-clips // batch) * -(-frames // chunk)
+                    for k, v in per_chunk(model, "dynamic").items()}
             want.update(dw_se_fold=dwse, winograd_u_fold=1, xattn_pack=1)
         want["fused_bidirectional_cross_attention_general"] = 0
         got = ep["launches"]
         bad = {k: (got[k], v) for k, v in want.items() if got[k] != v}
         if bad:
-            fail(f"fit, {ep['kind']} epoch {i // 2 + 1}: launches (counted, derived) {bad}")
-        print(f"[fit] {ep['kind']} epoch {i // 2 + 1}: launches and folds as derived {want}"
-              + (f", updates of {ep['micro']} micro-batches" if ep["micro"] else "")
-              + f"; {ep['seconds']:.3f} s")
+            fail(f"{phase}, {ep['kind']} epoch {i // 2 + 1}: launches (counted, derived) {bad}")
+        counts.append({k: want.get(k, 0) for k in KERNELS})
+        if phase == "fit":
+            print(f"[fit] {ep['kind']} epoch {i // 2 + 1}: launches and folds as derived {want}"
+                  + (f", updates of {ep['micro']} micro-batches" if ep["micro"] else "")
+                  + f"; {ep['seconds']:.3f} s")
+    return counts
 
 
 def decode_rate(loader, frames):
@@ -1454,18 +1480,16 @@ def phase_fit(state, cfg, bare_step_ms, tmp):
     steps_per_epoch = max(1, len(train_loader) // FIT_ACCUM)
     trainer = fit_trainer(cfg, state, ckpt_dir, train_ds, steps_per_epoch)
     timer = StepTimer()
-    train_loop.train_step = timer
     counted, saves = Counted(trainer, timer), SaveTimer(trainer.ckpt)
     torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
-    try:
+    with mock.patch.object(train_loop, "train_step", timer):
         result = trainer.fit(train_loader, val_loader, train_dataset=train_ds,
                              val_dataset=val_ds)
-    finally:
-        train_loop.train_step = train_step
     fit_s = time.perf_counter() - t
     peak = torch.cuda.max_memory_allocated()
-    check_fit_epochs(cfg, trainer.model, counted, len(val_ds))
+    check_epochs("fit", cfg, trainer.model, counted, frames=FIT_FRAMES, batch=FIT_BATCH,
+                 chunk=FIT_CHUNK, remat=True)
     for n in detector_frozen_names():
         if not torch.equal(trainer.model.state_dict()[n], state[n]):
             fail(f"fit: frozen tensor {n} changed")
@@ -1621,11 +1645,12 @@ def dp_train(cfg, state, clips, labels, mesh, steps=2, accum=2, chunk=32):
     return ms, profile, {k: v / steps for k, v in run["launches"].items()}, run["grad_bytes"]
 
 
-def torchrun(module, args, tmp, timeout=600):
-    """``torchrun --standalone --nproc-per-node=1 -m module args`` from the
-    repository root; its process group is its own. Returns its stdout."""
+def torchrun(code, tmp, timeout=600):
+    """``torchrun --standalone --nproc-per-node=1 --no-python python3 -c
+    code`` from the repository root; its process group is its own. Returns
+    its stdout."""
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc-per-node=1", "-m", module, *args]
+           "--nproc-per-node=1", "--no-python", sys.executable, "-c", code]
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
     proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
@@ -1635,37 +1660,38 @@ def torchrun(module, args, tmp, timeout=600):
     except subprocess.TimeoutExpired:
         os.killpg(proc.pid, 9)
         proc.communicate()
-        fail(f"torchrun {module} did not finish in {timeout} s")
+        fail(f"torchrun did not finish in {timeout} s")
     if proc.returncode != 0:
-        fail(f"torchrun {module} exited {proc.returncode}:\n{out[-4000:]}")
+        fail(f"torchrun exited {proc.returncode}:\n{out[-4000:]}")
     return out
 
 
 def dp_clis(root, tmp):
-    """cli.train --mesh (1 epoch, --tiny) and cli.eval --mesh on its
-    checkpoint, each under torchrun on one GPU."""
+    """cli.train --mesh (1 epoch, --tiny) and then cli.eval --mesh on its
+    checkpoint, in one process under torchrun on one GPU (each CLI forms
+    and tears down its own process group from torchrun's environment)."""
     out, ev = os.path.join(tmp, "dp_train"), os.path.join(tmp, "dp_eval")
-    common = ["--root", root, "--tiny", "--mesh", "--frame-count", "8", "--batch-size", "2"]
-    t = time.perf_counter()
-    log = torchrun("ewvit_tpu_torch.cli.train", common + ["--output", out, "--epochs", "1"], tmp)
     ckpt = os.path.join(out, "checkpoints", "checkpoint_1.pth")
+    common = ["--root", root, "--tiny", "--mesh", "--frame-count", "4", "--batch-size", "2"]
+    code = ("from ewvit_tpu_torch.cli import eval, train\n"
+            f"train.main({common + ['--output', out, '--epochs', '1']!r})\n"
+            f"eval.main({common + ['--model-path', ckpt, '--output', ev, '--dataset', 'ff++']!r})")
+    t = time.perf_counter()
+    log = torchrun(code, tmp)
+    seconds = time.perf_counter() - t
     if "Data-parallel mesh: {'dcn': 1, 'data': 1, 'frames': 1}" not in log \
             or not os.path.exists(ckpt):
         fail(f"torchrun cli.train --mesh wrote no checkpoint_1.pth:\n{log[-4000:]}")
-    train_s = time.perf_counter() - t
-    t = time.perf_counter()
-    log_ev = torchrun("ewvit_tpu_torch.cli.eval",
-                      common + ["--model-path", ckpt, "--output", ev, "--dataset", "ff++"], tmp)
-    if "Data-parallel eval mesh:" not in log_ev:
-        fail(f"torchrun cli.eval --mesh printed no mesh:\n{log_ev[-4000:]}")
+    if "Data-parallel eval mesh:" not in log:
+        fail(f"torchrun cli.eval --mesh printed no mesh:\n{log[-4000:]}")
     with open(os.path.join(ev, "eval_results.csv")) as f:
         rows = f.read().splitlines()
     if len(rows) != 7:
         fail(f"torchrun cli.eval --mesh rows {rows}")
-    print(f"[dp] torchrun --nproc-per-node=1 cli.train --mesh --tiny (1 epoch) in "
-          f"{train_s:.1f} s: {[l for l in log.splitlines() if 'Epoch 1/1' in l]}; cli.eval "
-          f"--mesh in {time.perf_counter() - t:.1f} s: eval_results.csv {rows[:2]}")
-    return dict(train_s=train_s, eval_s=time.perf_counter() - t)
+    print(f"[dp] torchrun --nproc-per-node=1: cli.train --mesh --tiny (1 epoch) and cli.eval "
+          f"--mesh in {seconds:.1f} s: {[l for l in log.splitlines() if 'Epoch 1/1' in l]}; "
+          f"eval_results.csv {rows[:2]}")
+    return dict(seconds=seconds)
 
 
 def phase_dp(state, requests, served, evaluated, train_clips, root, tmp):
@@ -1964,35 +1990,158 @@ def phase_clis(state):
         bench={m: {k: r[k] for k in cli_bench.KEYS} for m, r in throughput.items()})
 
 
+# ------------------------------------------------------------------ learn
+
+LEARN_FRAMES, LEARN_BATCH = 8, 4       # the flagship recipe's --frame-count, --batch-size
+
+
+def counting_evaluate(evaluate, passes):
+    """``evaluation.evaluate`` that records each call's batches and launch
+    counts (zeroed just before it)."""
+    def run(model, loader, **kw):
+        extension.reset_launches()
+        out = evaluate(model, loader, **kw)
+        torch.cuda.synchronize()
+        passes.append(dict(batches=len(loader), launches=dict(extension.LAUNCHES)))
+        return out
+    return run
+
+
+def check_learn_launches(cfg, model, counted, passes):
+    """The train and val epochs as ``check_epochs`` derives them (no remat),
+    and each pass of cli.eval: K1-K4 ``per_chunk`` times per batch. Returns
+    the phase's launches per kernel."""
+    epochs = check_epochs("learn", cfg, model, counted, frames=LEARN_FRAMES, batch=LEARN_BATCH,
+                          chunk=cfg.frame_chunk, remat=False)
+    each = per_chunk(model, "dynamic")
+    chunks = -(-LEARN_FRAMES // min(cfg.frame_chunk, LEARN_FRAMES))
+    for i, ev in enumerate(passes):
+        want = {k: v * ev["batches"] * chunks for k, v in each.items()}
+        want["fused_bidirectional_cross_attention_general"] = 0
+        check_counts(f"learn, cli.eval pass {i + 1}", ev["launches"], want)
+        epochs.append({k: want[k] for k in KERNELS})
+    total = {k: sum(c[k] for c in epochs) for k in KERNELS}
+    train = [ep for ep in counted.epochs if ep["kind"] == "train"]
+    print(f"[learn] launches and folds as derived: a train epoch {epochs[0]} (updates of "
+          f"{train[0]['micro']} micro-batches), a val epoch of "
+          f"{len(counted.epochs[1]['result'].metrics['labels'])} clips {epochs[1]}, "
+          f"cli.eval's {len(passes)} passes of {[ev['batches'] for ev in passes]} batches; "
+          f"the phase {total}")
+    return total
+
+
+def phase_learn():
+    """The learning proof's flagship recipe through cli.train and cli.eval,
+    with K1-K4 on; returns its numbers and launch counts."""
+    from ewvit_tpu_torch import evaluation
+    from ewvit_tpu_torch.cli.learning_proof import FACE_DETECTOR, prove
+
+    cfg = ModelConfig().replace(**TRAIN_FLAGS)
+    decode_route()
+    tmp = tempfile.mkdtemp(prefix="ewvit_learn_")
+    timer, passes, made = StepTimer(), [], []
+
+    def count(init):
+        """The Trainer that cli.train builds, with the fit phase's counters."""
+        def run(trainer, *a, **kw):
+            init(trainer, *a, **kw)
+            made.append((trainer.model, Counted(trainer, timer), SaveTimer(trainer.ckpt)))
+        return run
+
+    t0 = time.perf_counter()
+    try:
+        with mock.patch.object(Trainer, "__init__", count(Trainer.__init__)), \
+                mock.patch.object(train_loop, "train_step", timer), \
+                mock.patch.object(evaluation, "evaluate",
+                                  counting_evaluate(evaluation.evaluate, passes)):
+            out = prove(tmp, flagship=True, model_cfg=cfg, device="cuda")
+        wall = time.perf_counter() - t0
+        tf = FrameTransform(resize=round(cfg.arch.image_size * 450 / 224),
+                            crop=cfg.arch.image_size, aligner=FaceAligner(detector=FACE_DETECTOR))
+        fixture = os.path.join(tmp, "fixture")
+        ds = FaceForensicsDataset(fixture, split="val", frame_count=LEARN_FRAMES,
+                                  transform=tf, seed=0)
+        fps = decode_rate(BatchLoader(ds, LEARN_BATCH, num_workers=2, seed=0), LEARN_FRAMES)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec = out["record"]
+    failed = [msg for msg, ok in out["checks"].items() if not ok]
+    if failed or not rec["ok"]:
+        fail(f"learning proof: {failed}; {rec}")
+    (model, counted, saves), = made
+    launches = check_learn_launches(cfg, model, counted, passes)
+    train = [ep for ep in counted.epochs if ep["kind"] == "train"]
+    val = [ep for ep in counted.epochs if ep["kind"] == "val"]
+    step_ms = [b.elapsed_time(e) for _, b, e in timer.steps]
+    measured = dict(
+        first_loss=rec["first_loss"], final_loss=rec["final_loss"],
+        best_val_auc=rec["best_val_auc"], test_auc=rec["test_auc"], test_acc=rec["test_acc"],
+        epochs=rec["epochs"], wall_s=wall, seconds=out["seconds"],
+        s_per_epoch=out["seconds"]["train"] / rec["epochs"],
+        train_epoch_s=[ep["seconds"] for ep in train], val_epoch_s=[ep["seconds"] for ep in val],
+        updates=len(step_ms), ms_per_update=float(np.mean(step_ms)),
+        ms_per_update_min_max=[min(step_ms), max(step_ms)],
+        decode_frames_per_s=fps, save_blocked_s=saves.seconds,
+        losses=[h["train"]["loss"] for h in out["history"]],
+        val_auc=[h["val"]["auc"] for h in out["history"]], launches=launches)
+    print(f"[learn] flagship proof with K1-K4: loss {rec['first_loss']:.4f} -> "
+          f"{rec['final_loss']:.4f}, best val AUC {rec['best_val_auc']:.4f}, test AUC "
+          f"{rec['test_auc']:.4f}, test ACC {rec['test_acc']:.4f}; phase {wall:.1f} s "
+          f"(fixture {out['seconds']['fixture']:.1f}, train {out['seconds']['train']:.1f}, "
+          f"eval {out['seconds']['eval']:.1f}), {measured['s_per_epoch']:.2f} s per epoch, "
+          f"{measured['ms_per_update']:.1f} ms per update ({len(step_ms)} updates), host "
+          f"decode {fps:.1f} frames/s (the val split, cv2, face detector "
+          f"{FACE_DETECTOR!r}, 2 threads), blocked per checkpoint "
+          f"{[round(v, 3) for v in saves.seconds]} s")
+    return measured
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     t0 = time.perf_counter()
+    walls, mark = {}, [t0]
+
+    def lap(name):
+        now = time.perf_counter()
+        walls[name], mark[0] = round(now - mark[0], 1), now
+
     dev = phase_device()
     phase_build()
+    lap("build")
     report = phase_kernels(dev)
+    lap("kernels")
     rng = np.random.default_rng(0)
     requests = [rng.integers(0, 256, (2, 40, 224, 224, 3), dtype=np.uint8)
                 for _ in range(3)]
     state = random_detector(PATHS["three_flags"][0], device="cuda", seed=0).state_dict()
     served = phase_serve(requests, state)
+    lap("serve")
     evaluated = phase_checkpoint(requests, state, served)
+    lap("checkpoint")
     train_clips = rng.integers(0, 256, (4, 40, 224, 224, 3), dtype=np.uint8)
     trained = phase_train(state, ModelConfig().replace(**TRAIN_FLAGS), train_clips)
     print(f"[train] {json.dumps(trained)}")
+    lap("train")
     tmp = tempfile.mkdtemp(prefix="ewvit_fit_")
     try:
         fitted = phase_fit(state, ModelConfig().replace(**TRAIN_FLAGS), trained["ms_per_step"],
                            tmp)
         print(f"[fit] {json.dumps(fitted)}")
+        lap("fit")
         dp, dp_launches = phase_dp(state, requests, served, evaluated, train_clips,
                                    os.path.join(tmp, "data"), tmp)
         print(f"[dp] {json.dumps(dp)}")
+        lap("dp")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     clis = phase_clis(state)
     print(f"[clis] {json.dumps(clis)}")
+    lap("clis")
+    learned = phase_learn()
+    print(f"[learn] {json.dumps(learned)}")
+    lap("learn")
     launches = {name: run["launches"] for name, run in served.items()}
     for r in report:
         r["launches_by_path"] = {p: n[r["name"]] for p, n in launches.items()}
@@ -2001,10 +2150,12 @@ def main() -> int:
             r["launches"] = launches["fused_mwt_tail"][r["name"]]
         r["clis_launches"] = {p: n[r["name"]] for p, n in clis["launches"].items()}
         r["dp_launches"] = {p: n[r["name"]] for p, n in dp_launches.items()}
+        r["learn_launches"] = learned["launches"].get(r["name"], 0)
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path",
-            "train_launches_per_step", "clis_launches", "dp_launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "train_launches_per_step", "clis_launches", "dp_launches", "learn_launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "cold_ms", "general_ms", "max_active_clusters")
-    print(f"[done] {time.perf_counter() - t0:.1f} s")
+    print(f"[done] {time.perf_counter() - t0:.1f} s; wall s per phase {walls}")
     print(json.dumps({"kernels": [{k: r.get(k) for k in keys} for r in report]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,6 +18,10 @@ the JAX CLI's ``_render_viz`` (eval.py:71-98, :206-216).
 world of one without torchrun): each rank decodes its rows of every batch,
 ``--batch-size`` must be divisible by the ranks (eval.py:143-147), and rank 0
 alone prints and writes.
+
+``main(argv, model_cfg=, face_detector=)`` evaluates under the given
+``configs.ModelConfig`` in place of the one the flags build, with the
+given face detector, as ``cli/train.py`` takes them.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ import csv
 import json
 import os
 import random
-from typing import Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -110,7 +114,8 @@ def _export(output: str, rows: List[Dict], confusions: Dict) -> None:
     print(f"Saved results to {csv_path}")
 
 
-def main(argv: Optional[Sequence[str]] = None) -> Dict:
+def main(argv: Optional[Sequence[str]] = None, *, model_cfg: Any = None,
+         face_detector: str = "auto") -> Dict:
     """Returns what was exported: ``{"rows": [...], "confusions": {...}}``."""
     args = parse_args(argv)
     random.seed(args.seed)
@@ -121,27 +126,30 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
 
         mesh = make_mesh(device=args.device)      # every rank on the 'data' axis
     try:
-        return _run(args, mesh)
+        return _run(args, mesh, model_cfg=model_cfg, face_detector=face_detector)
     finally:
         if mesh is not None:
             mesh.close()
 
 
-def _run(args: argparse.Namespace, mesh) -> Dict:
+def _run(args: argparse.Namespace, mesh, *, model_cfg=None, face_detector="auto") -> Dict:
     from ewvit_tpu_torch.configs import ModelConfig
-    from ewvit_tpu_torch.data.transforms import FrameTransform
+    from ewvit_tpu_torch.data.transforms import FaceAligner, FrameTransform
     from ewvit_tpu_torch.device import resolve_device
     from ewvit_tpu_torch.evaluation import evaluate, get_dataloader, load_model, print_metrics
 
     lead = mesh is None or mesh.rank == 0
     device = mesh.device if mesh is not None else resolve_device(args.device)
-    if args.tiny:
+    if model_cfg is not None:
+        cfg = model_cfg
+    elif args.tiny:
         cfg = ModelConfig.tiny().replace(pos_mode=args.pos_mode)
     else:
         cfg = ModelConfig(dama_dim=args.dim, frame_chunk=args.frame_chunk,
                           pos_mode=args.pos_mode)
     size = cfg.arch.image_size
-    transform = FrameTransform(resize=max(1, round(size * 450 / 224)), crop=size)
+    transform = FrameTransform(resize=max(1, round(size * 450 / 224)), crop=size,
+                               aligner=FaceAligner(detector=face_detector))
     model = load_model(args.model_path, cfg, device=device)
     ev = dict(mode=args.ablation, frame_chunk=cfg.frame_chunk, device=device)
     loader_kw = dict(batch_size=args.batch_size, num_workers=args.num_workers,

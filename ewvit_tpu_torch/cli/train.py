@@ -16,6 +16,16 @@ ewvit_tpu_torch.cli.train --mesh ...``; without torchrun's environment it
 forms a world of one. ``--batch-size`` must be divisible by the ranks (the
 JAX CLI asks ``batch * accum`` to divide, train.py:136-139; here a
 micro-batch cannot split below a clip). Rank 0 alone prints and writes.
+
+``main(argv, model_cfg=, face_detector=)`` trains the given
+``configs.ModelConfig`` in place of the one the flags build (``--dim``,
+``--frame-chunk``, ``--pos-mode``, ``--tiny``): a caller turns the kernel
+flags on that way, as ``cli/learning_proof.py`` does; the command line has
+no kernel flag, as the JAX CLI has none. ``face_detector`` is the frames'
+``data.transforms.FaceAligner`` detector (``"auto"``, the CLI's: Haar when
+cv2 has its cascade). ``main`` returns ``Trainer.fit``'s result with
+``train_losses``, the per-epoch train losses, beside its ``history`` and
+``best_val_auc``.
 """
 
 from __future__ import annotations
@@ -23,7 +33,7 @@ from __future__ import annotations
 import argparse
 import os
 import random
-from typing import Optional, Sequence
+from typing import Any, Optional, Sequence
 
 import numpy as np
 
@@ -75,7 +85,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
-def main(argv: Optional[Sequence[str]] = None) -> dict:
+def main(argv: Optional[Sequence[str]] = None, *, model_cfg: Any = None,
+         face_detector: str = "auto") -> dict:
     args = parse_args(argv)
     random.seed(args.seed)
     np.random.seed(args.seed)
@@ -86,17 +97,17 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
 
         mesh = make_mesh(device=args.device)      # every rank on the 'data' axis
     try:
-        return _run(args, mesh)
+        return _run(args, mesh, model_cfg=model_cfg, face_detector=face_detector)
     finally:
         if mesh is not None:
             mesh.close()
 
 
-def _run(args: argparse.Namespace, mesh) -> dict:
+def _run(args: argparse.Namespace, mesh, *, model_cfg=None, face_detector="auto") -> dict:
     from ewvit_tpu_torch.configs import ModelConfig, TrainConfig
     from ewvit_tpu_torch.data.datasets import FaceForensicsDataset
     from ewvit_tpu_torch.data.pipeline import BatchLoader
-    from ewvit_tpu_torch.data.transforms import FrameTransform
+    from ewvit_tpu_torch.data.transforms import FaceAligner, FrameTransform
     from ewvit_tpu_torch.device import resolve_device
     from ewvit_tpu_torch.train.loop import Trainer
     from ewvit_tpu_torch.utils.visualization import TrainVisualization
@@ -116,13 +127,14 @@ def _run(args: argparse.Namespace, mesh) -> dict:
         os.makedirs(args.output, exist_ok=True)
     say(f"Device: {device}")
 
-    if args.tiny:
+    if model_cfg is None and args.tiny:
         model_cfg = ModelConfig.tiny().replace(pos_mode=args.pos_mode)
-    else:
+    elif model_cfg is None:
         model_cfg = ModelConfig(dama_dim=args.dim, frame_chunk=args.frame_chunk,
                                 pos_mode=args.pos_mode)
     size = model_cfg.arch.image_size
-    transform = FrameTransform(resize=max(1, round(size * 450 / 224)), crop=size)
+    transform = FrameTransform(resize=max(1, round(size * 450 / 224)), crop=size,
+                               aligner=FaceAligner(detector=face_detector))
     train_ds = FaceForensicsDataset(args.root, split="train", frame_count=args.frame_count,
                                     transform=transform, seed=args.seed)
     val_ds = FaceForensicsDataset(args.root, split="val", frame_count=args.frame_count,
@@ -151,7 +163,7 @@ def _run(args: argparse.Namespace, mesh) -> dict:
     result = trainer.fit(train_loader, val_loader, train_dataset=train_ds,
                          val_dataset=val_ds, viz=viz)
     say(f"Best val AUC: {result['best_val_auc']:.4f}")
-    return result
+    return {**result, "train_losses": [h["train"]["loss"] for h in result["history"]]}
 
 
 if __name__ == "__main__":

@@ -11,13 +11,19 @@ pair has all five.
 :func:`write_celebdf_tree` writes a Celeb-DF-v2 test set as
 ``CelebDFDataset`` reads it (``celebdf/frames/{Celeb-real,Celeb-synthesis}/{id}``
 and a testing list of ``label path`` lines, 1 for real).
+
+:func:`write_checkerboard_tree` writes the learning proof's FF++ tree
+(``cli/learning_proof.py``), the same files byte for byte as the JAX
+package's ``tools/make_synthetic_fixture.py`` for the same arguments: real
+frames are smooth block images, fakes add a +-``amp`` pixel-scale
+checkerboard, a signal the MWT's high-frequency branch can learn.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Dict, List, Sequence
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
@@ -93,3 +99,65 @@ def write_celebdf_tree(root: str, *, videos: int = 2, frames: int = 3, height: i
     with open(path, "w") as f:
         f.writelines(lines)
     return path
+
+
+def _checkerboard_clip(directory: str, frames: int, size: int, amp: int, fake: bool,
+                       rng: np.random.Generator, block: int = 30) -> None:
+    """``frames`` PNGs of ``size`` px: ``block``-px squares of random colour,
+    plus the checkerboard for a fake (tools/make_synthetic_fixture.py:34-48)."""
+    cv2 = cv2_module()
+    os.makedirs(directory, exist_ok=True)
+    yy, xx = np.indices((size, size))
+    cb = (((yy + xx) % 2) * 2 - 1).astype(np.int16)
+    g = -(-size // block)       # the tiles cover the frame before the cut
+    for i in range(frames):
+        base = rng.integers(40, 216, (g, g, 3))
+        img = np.kron(base, np.ones((block, block, 1)))[:size, :size].astype(np.int16)
+        if fake:
+            img = img + cb[..., None] * amp
+        if not cv2.imwrite(os.path.join(directory, f"{i:03d}.png"),
+                           np.clip(img, 0, 255).astype(np.uint8)):
+            raise OSError(f"could not write a frame into {directory}")
+
+
+def write_checkerboard_tree(root: str, *, pairs: int, val_pairs: int, frames: int,
+                            size: int = 450, amp: int = 24,
+                            methods: Sequence[str] = ("Deepfakes",),
+                            spread_methods: bool = False, seed: int = 0) -> Tuple[dict, int]:
+    """Write the tree under ``root``: ``pairs`` train pairs, ``val_pairs``
+    val and as many test pairs, ``frames`` PNGs of ``size`` px a video.
+    Every pair's fake goes under each of ``methods``, or with
+    ``spread_methods`` under one, round-robin (every method's directory is
+    made all the same). Returns the splits' ``[target, source]`` lists and the
+    number of PNGs written."""
+    if cv2_module() is None:
+        raise RuntimeError("writing a synthetic frame tree needs cv2")
+    unknown = [m for m in methods if m not in FF_METHODS]
+    if unknown:
+        raise ValueError(f"unknown methods {unknown} (use some of {FF_METHODS})")
+    base = os.path.join(root, "faceforensics", "ff++")
+    os.makedirs(os.path.join(base, "splits"), exist_ok=True)
+    rng = np.random.default_rng(seed)
+    n_total = pairs + 2 * val_pairs
+    ids = [[f"{i:03d}", f"{i + 500:03d}"] for i in range(n_total)]
+    splits = {"train": ids[:pairs], "val": ids[pairs:pairs + val_pairs],
+              "test": ids[pairs + val_pairs:]}
+    for split, ps in splits.items():
+        with open(os.path.join(base, "splits", f"{split}.json"), "w") as f:
+            json.dump(ps, f)
+    n_png = 0
+    for t, _ in ids:
+        _checkerboard_clip(os.path.join(base, "frames", "original", t), frames, size, amp,
+                           False, rng)
+        n_png += frames
+    if spread_methods:
+        for m in methods:
+            os.makedirs(os.path.join(base, "frames", m), exist_ok=True)
+        fakes = [(methods[j % len(methods)], t, s) for j, (t, s) in enumerate(ids)]
+    else:
+        fakes = [(m, t, s) for m in methods for t, s in ids]
+    for m, t, s in fakes:
+        _checkerboard_clip(os.path.join(base, "frames", m, f"{t}_{s}"), frames, size, amp,
+                           True, rng)
+        n_png += frames
+    return splits, n_png

@@ -35,9 +35,14 @@ cast to the compute dtype, and the mode's head runs on the means.
 - With a mesh (``parallel.make_mesh``) a rank runs its rows of the global
   batch and each chunk states them (:class:`Split`): dropout, stochastic
   depth and the positional embedding follow the global row, and in train
-  mode BN takes its statistics over the batch group, so the rank's outputs
-  are its rows of the unsplit run's (the JAX package's GSPMD keeps the
-  single-device meaning the same way).
+  mode BN takes its statistics over every rank that holds rows of the chunk,
+  so the rank's outputs are its rows of the unsplit run's (the JAX package's
+  GSPMD keeps the single-device meaning the same way). On a frames axis in
+  training each rank runs its share of every chunk (``parallel/mesh.py``):
+  BN syncs over the whole mesh, a rank with no row of a ragged tail chunk
+  still runs it (its zero rows join the collectives, forward and backward),
+  and the per-clip sums are all-reduced over the frames group, with an
+  autograd all-reduce, before the head.
 """
 
 from __future__ import annotations
@@ -49,7 +54,6 @@ from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
-import torch.distributed
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
@@ -61,6 +65,7 @@ from ewvit_tpu_torch.models.norm import calibrate_batchnorm_, synced_batch_stats
 from ewvit_tpu_torch.models.rows import Dropout, global_rows
 from ewvit_tpu_torch.models.sfe import EfficientViT
 from ewvit_tpu_torch.ops.preprocess import preprocess_batch
+from ewvit_tpu_torch.parallel.mesh import all_reduce_sum
 
 ABLATION_MODES = ("dynamic", "sfe_only", "sfe_mwt")
 
@@ -123,16 +128,25 @@ class DeepfakeDetector(nn.Module):
         return {"logits": self.classifier(fused), "sfe": s, "mwt": m}
 
 
+# flax's lecun_normal() draws a unit normal truncated at +-2 and divides by
+# the truncated normal's standard deviation, so that the variance is 1/fan_in
+TRUNC_STD = 0.87962566103423978
+
+
 @torch.no_grad()
 def init_weights_(model: nn.Module, seed: int = 0) -> nn.Module:
-    """Seeded init on the model's device: lecun-normal conv/linear weights,
-    zero biases, identity norms, N(0, 1) positional embedding and CLS token."""
+    """Seeded init on the model's device, as the JAX package's initialisers
+    draw: conv and linear weights from flax's ``lecun_normal()`` (a unit
+    normal truncated at +-2, times ``1/sqrt(fan_in) / TRUNC_STD``, fan-in
+    ``kh*kw*cin/groups``), zero biases, identity norms, N(0, 1) positional
+    embedding and CLS token (ewvit_tpu/models/sfe.py:98, :113)."""
     dev = next(model.parameters()).device
     g = torch.Generator(device=dev).manual_seed(seed)
     for m in model.modules():
         if isinstance(m, (nn.Conv2d, nn.Linear)):
             fan_in = m.weight[0].numel()
-            m.weight.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=g)
+            nn.init.trunc_normal_(m.weight, 0.0, 1.0, -2.0, 2.0, generator=g)
+            m.weight.mul_(1.0 / math.sqrt(fan_in) / TRUNC_STD)
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm)):
@@ -265,17 +279,18 @@ def video_forward(model: DeepfakeDetector, x: torch.Tensor, *, mode: str = "dyna
     of a global batch of ``B`` (rows ``[i*B/W, (i+1)*B/W)`` for batch index
     ``i``), and the outputs are this rank's rows of the global run's. Every
     chunk states its global rows (dropout, stochastic depth, the positional
-    embedding) and, in train mode, takes BN statistics over the batch group.
-    ``frame_axis`` (eval only, serving): ``x`` holds this rank's ``K/F``
-    contiguous frames; the rank walks the global chunk grid over its frames
-    and the per-clip sums are all-reduced over the frames group before the
-    head."""
+    embedding) and, in train mode, takes BN statistics over the ranks that
+    hold rows of it. ``frame_axis`` on a mesh with ``frames > 1``: in eval
+    mode (serving) ``x`` holds this rank's ``K/F`` contiguous frames, and the
+    rank walks the global chunk grid over them; in train mode ``x`` holds all
+    ``K`` frames of the rank's clips, and the rank runs its share
+    ``mesh.frame_share(n)`` of every chunk of ``n`` frames, with BN synced
+    over the whole mesh. Either way the per-clip sums are all-reduced over
+    the frames group before the head."""
     if model.training:
-        if frame_axis and mesh is not None and mesh.frame_size > 1:
-            raise ValueError("training shards the batch only: a frames axis "
-                             "is not ported to training")
         return _train_video_forward(model, x, mode, frame_chunk, seed,
-                                    model.cfg.remat_frames if remat is None else remat, mesh)
+                                    model.cfg.remat_frames if remat is None else remat, mesh,
+                                    frame_axis)
     with torch.no_grad():
         return _eval_video_forward(model, x, mode, frame_chunk, mesh, frame_axis)
 
@@ -290,11 +305,28 @@ def _batch_split(mesh, b: int, rows_per_clip: int, device) -> Optional[Split]:
                  b * mesh.batch_size * rows_per_clip, mesh.batch_group)
 
 
-def _train_video_forward(model, x, mode, frame_chunk, seed, remat, mesh):
+def _frames_split(mesh, b: int, n: int, lo: int, width: int, device) -> Split:
+    """This rank's rows of a training chunk of ``n`` frames split over the
+    frames axis: its clips ``c`` (global) and frames ``lo + t`` are the
+    global rows ``c*n + lo + t``; BN syncs over the whole mesh."""
+    clips = torch.arange(mesh.batch_index * b, (mesh.batch_index + 1) * b, device=device)
+    index = clips[:, None] * n + lo + torch.arange(width, device=device)
+    return Split(index.reshape(-1), b * mesh.batch_size * n, mesh.world_group)
+
+
+def _reduce_over_frames(sums: Dict[str, torch.Tensor], mesh) -> Dict[str, torch.Tensor]:
+    """The per-clip sums of every frames rank, summed (differentiably, for
+    the train forward)."""
+    flat = all_reduce_sum(torch.cat(list(sums.values()), dim=1), mesh.frames_group)
+    return dict(zip(sums, flat.split([v.shape[1] for v in sums.values()], dim=1)))
+
+
+def _train_video_forward(model, x, mode, frame_chunk, seed, remat, mesh, frame_axis=False):
     b, k = x.shape[:2]
     chunk = min(frame_chunk, k)
     starts = range(0, k, chunk)
     seeds = chunk_seeds(seed, len(starts) + 1)      # one per chunk, one for the head
+    by_frames = mesh is not None and frame_axis and mesh.frame_size > 1
     run = _train_chunk
     if remat:
         bns = [m for m in model.modules() if isinstance(m, nn.modules.batchnorm._BatchNorm)]
@@ -304,12 +336,21 @@ def _train_video_forward(model, x, mode, frame_chunk, seed, remat, mesh):
     sums = {key: torch.zeros(b, d, dtype=torch.float32, device=x.device)
             for key, d in feat_dims(model.cfg, check_mode(mode)).items()}
     for start, s in zip(starts, seeds):
-        fr = x[:, start:start + chunk]
-        n = fr.shape[1]                   # the tail chunk is smaller
-        out = run(model, fr.reshape(b * n, *x.shape[2:]), mode, s,
-                  _batch_split(mesh, b, n, x.device))
-        sums = {key: v + out[key].float().reshape(b, n, -1).sum(dim=1)
+        n = min(chunk, k - start)         # the tail chunk is smaller
+        if by_frames:                     # this rank's share, maybe none
+            lo, hi = mesh.frame_share(n)
+            split = _frames_split(mesh, b, n, lo, hi - lo, x.device)
+        else:
+            lo, hi = 0, n
+            split = _batch_split(mesh, b, n, x.device)
+        fr = x[:, start + lo:start + hi]
+        out = run(model, fr.reshape(b * (hi - lo), *x.shape[2:]), mode, s, split)
+        # a zero-row share still adds its (empty) sum, so that its backward,
+        # and the collectives in it, run on this rank as on the others
+        sums = {key: v + out[key].float().reshape(b, hi - lo, v.shape[1]).sum(dim=1)
                 for key, v in sums.items()}
+    if by_frames:
+        sums = _reduce_over_frames(sums, mesh)
     dt = compute_dtype(model.cfg.compute_dtype)
     with seeded(seeds[-1], x.device), _in_split(_batch_split(mesh, b, 1, x.device)):
         return model.head({key: (v / k).to(dt) for key, v in sums.items()}, mode)
@@ -349,8 +390,6 @@ def _eval_video_forward(model, x, mode, frame_chunk, mesh=None, frame_axis=False
         for key in sums:
             sums[key] += out[key].float().reshape(b, width, -1)[:, :valid].sum(dim=1)
     if mesh is not None and frame_axis:
-        flat = torch.cat(list(sums.values()), dim=1)
-        torch.distributed.all_reduce(flat, group=mesh.frames_group)
-        sums = dict(zip(sums, flat.split([v.shape[1] for v in sums.values()], dim=1)))
+        sums = _reduce_over_frames(sums, mesh)
     dt = compute_dtype(model.cfg.compute_dtype)
     return model.head({key: (v / k).to(dt) for key, v in sums.items()}, mode)

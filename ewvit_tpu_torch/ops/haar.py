@@ -74,6 +74,8 @@ def haar_dwt2d(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     n, c, h, w = x.shape
     ll = torch.empty(n, c, h // 2, w // 2, dtype=x.dtype, device=x.device)
     hf = torch.empty(n, 3 * c, h // 2, w // 2, dtype=x.dtype, device=x.device)
+    if n == 0:       # a rank's empty share of a training chunk: nothing to launch
+        return ll, hf
     extension.launch("haar", "ewvit_haar_dwt2d", "haar_dwt2d",
                      x.data_ptr(), ll.data_ptr(), hf.data_ptr(),
                      n, c, h, w, extension.dtype_code(x))

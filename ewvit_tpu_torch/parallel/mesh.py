@@ -5,15 +5,30 @@ One process per device. Ranks are laid out row-major with ``dcn`` slowest,
 as ``np.reshape(devices, (dcn, data, frames))`` lays out the JAX devices:
 rank ``r`` sits at ``np.unravel_index(r, (dcn, data, frames))``. Clips
 ``[B, K, ...]`` shard B over the batch axis (``dcn`` x ``data``) and,
-where a caller asks for it (serving), K over ``frames``:
+where a caller asks for it (serving, and training with ``F > 1``), K over
+``frames``:
 
 - the **batch group** of a rank: the ranks with its ``frames`` coordinate,
   in rank order; the rank's place in it is its batch index
   ``dcn_i * data + data_i``, and it holds global rows
   ``[index * B/W, (index + 1) * B/W)`` of each batch of B clips (W = dcn x
   data);
-- the **frames group**: the ranks with its (dcn, data) coordinates; the
-  rank at ``frames`` coordinate ``f`` holds frames ``[f * K/F, (f+1) * K/F)``.
+- the **frames group**: the ranks with its (dcn, data) coordinates. In
+  serving (``InferenceEngine(frame_axis=True)``) the rank at ``frames``
+  coordinate ``f`` holds frames ``[f * K/F, (f+1) * K/F)``.
+
+Training on a frames axis (``F > 1``) lays the frames out by chunk instead:
+every rank of a frames group holds the same clips (its batch rows, from
+:meth:`Mesh.shard` or ``data.pipeline.BatchLoader(shard=batch_shard)``,
+as the JAX ``Trainer`` replicates a batch over frames), and of each chunk of
+``n`` frames the rank at coordinate ``f`` runs its contiguous share
+:meth:`Layout.frame_share` ``(n, f)``: ``ceil(n/F)`` frames, fewer or none at
+the end (a ragged tail chunk shorter than ``F`` leaves the last ranks no row
+of it). So every rank runs every chunk and joins the same sequence of
+collectives: train-mode BN takes its statistics over the **whole mesh**
+(every rank holds rows of every chunk, a zero-row rank adds nothing), each
+running statistic moves once per global chunk, in the unsplit order, and the
+per-clip sums are all-reduced over the frames group before the head.
 
 :func:`make_mesh` joins the process group from torchrun's environment
 (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``), or forms a
@@ -80,6 +95,13 @@ class Layout:
         """The ranks of ``rank``'s frames group, by frames coordinate."""
         base = self.batch_index(rank) * self.frames
         return list(range(base, base + self.frames))
+
+    def frame_share(self, n: int, f: int) -> Tuple[int, int]:
+        """``(lo, hi)``: the frames of a chunk of ``n`` that the rank at
+        frames coordinate ``f`` runs in training (contiguous, ``ceil(n/F)``
+        each in order, an empty range where none are left)."""
+        per = -(-n // self.frames)
+        return min(n, f * per), min(n, (f + 1) * per)
 
     def batch_groups(self) -> List[List[int]]:
         return [self.batch_members(f) for f in range(self.frames)]
@@ -153,6 +175,21 @@ class Mesh:
         return self.layout.coords(self.rank)[2]
 
     @property
+    def world_size(self) -> int:
+        """The ranks of the mesh (dcn x data x frames)."""
+        return self.layout.batch * self.layout.frames
+
+    @property
+    def world_group(self):
+        """The process group of the whole mesh (the world: ``make_mesh``
+        refuses a layout that is not)."""
+        return dist.group.WORLD
+
+    def frame_share(self, n: int) -> Tuple[int, int]:
+        """This rank's frames ``(lo, hi)`` of a training chunk of ``n``."""
+        return self.layout.frame_share(n, self.frame_index)
+
+    @property
     def batch_shard(self) -> Tuple[int, int]:
         """``(index, count)`` for ``data.pipeline.BatchLoader(shard=)``."""
         return self.batch_index, self.batch_size
@@ -200,9 +237,10 @@ class Mesh:
                 t.copy_(v)
         return module
 
-    def all_reduce_(self, t: torch.Tensor) -> torch.Tensor:
-        """In-place sum over the batch group (not differentiable)."""
-        dist.all_reduce(t, group=self.batch_group)
+    def all_reduce_(self, t: torch.Tensor, group=None) -> torch.Tensor:
+        """In-place sum over ``group`` (default: the batch group); not
+        differentiable."""
+        dist.all_reduce(t, group=self.batch_group if group is None else group)
         return t
 
     def barrier(self) -> None:

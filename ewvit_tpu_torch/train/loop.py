@@ -31,17 +31,21 @@ feeds a ``utils.visualization.TrainVisualization`` (or anything with its
 at the end.
 
 ``mesh=`` (``parallel.make_mesh``; ewvit_tpu/train/loop.py:66, :94-97,
-:128-146) trains data-parallel over the batch axis: the loaders yield this
-rank's rows of each global batch (``BatchLoader(shard=mesh.batch_shard)``),
+:128-146) trains data-parallel: the loaders yield this rank's rows of each
+global batch (``BatchLoader(shard=mesh.batch_shard)``; the ranks of a frames
+group get the same clips, as the JAX ``Trainer`` replicates a batch over
+frames),
 the weights are broadcast from rank 0 at construction and after
 :meth:`Trainer.resume` (which rank 0 reads and broadcasts), the colour
 jitter is drawn for the global super-batch (``models/rows.global_rows``),
 ``train_step(mesh=)`` and ``eval_step(mesh=)`` compute the global step and
 outputs, so every rank's epoch metrics are the world-of-one run's, and rank 0
 alone logs and writes checkpoints (a barrier after each save and at the end
-of :meth:`Trainer.fit`). A frames axis is not ported to training: chunks on
-different frames ranks would move the BN running statistics out of their
-sequential order.
+of :meth:`Trainer.fit`). On a frames axis (``frames > 1``) the train step
+splits each chunk's frames over the frames group (``parallel/mesh.py``): BN
+syncs over the whole mesh, so the running statistics move once per global
+chunk, in the unsplit order, on every rank. The val epoch shards the batch
+only, as the JAX ``evaluate`` does; the frames ranks repeat it.
 """
 
 from __future__ import annotations
@@ -112,9 +116,6 @@ class Trainer:
         mesh=None,
     ):
         if mesh is not None:
-            if mesh.frame_size > 1:
-                raise ValueError("training shards the batch only: a frames axis is not "
-                                 "ported to training")
             if train_cfg.batch_size % mesh.batch_size:
                 raise ValueError(f"batch_size {train_cfg.batch_size} must be divisible by "
                                  f"the mesh's batch axes dcn*data = {mesh.batch_size}")

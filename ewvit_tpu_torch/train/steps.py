@@ -18,19 +18,30 @@ reference's eager loop (train.py:93-140):
   gradient (one the mode does not use) gets a zero one, as ``jax.grad``
   gives it; then one optimizer update.
 
-With ``mesh`` (``parallel.make_mesh``, the batch axis only) the rank holds
-its ``B/W`` clips of each micro-batch of ``B`` (``Mesh.shard``), as the JAX
-step's batch sharding gives each device its rows, and the step computes the
-global one: the forward states its global rows and syncs train-mode BN over
-the batch group (``models/detector.video_forward``); the video-level outputs
-are gathered over the batch group (differentiably: the backward of the
-gather is a reduce-scatter) and ``combined_loss`` runs on the global batch on
-every rank, so the orthogonality loss is the global cross-covariance's;
-after the backward, one all-reduce of the fp32 gradients divided by W, and
-the optimizer step, leave every rank's parameters identical. The model is
-not wrapped in ``DistributedDataParallel``: ``video_forward`` calls it once
-per chunk (and the head once) under non-reentrant checkpoint before one
-backward, which DDP's reducer does not expect.
+With ``mesh`` (``parallel.make_mesh``) the rank holds its ``B/W`` clips of
+each micro-batch of ``B`` (``Mesh.shard``; every rank of a frames group the
+same clips), as the JAX step's batch sharding gives each device its rows,
+and the step computes the global one: the forward states its global rows,
+runs the rank's share of every chunk on a frames axis (``F > 1``) and syncs
+train-mode BN over the ranks holding rows of the chunk
+(``models/detector.video_forward``); the video-level outputs are gathered
+over the batch group (differentiably: the backward of the gather is a
+reduce-scatter) and ``combined_loss`` runs on the global batch on every
+rank, so the orthogonality loss is the global cross-covariance's; after the
+backward, one all-reduce of the fp32 gradients over the whole mesh divided
+by ``W*F``, and the optimizer step, leave every rank's parameters identical.
+
+The divisor follows from the adjoints. The loss is replicated, so each rank's
+gradient of the gathered outputs is the whole true one; the gather's
+reduce-scatter sums it over the W batch ranks (W times a rank's rows'
+share), and the frames all-reduce before the head sums that again over the
+F frames ranks: every rank's backbone gradient is ``W*F`` times its rows'
+share, and its head gradient is ``W`` times its clips' share, once on each
+of F frames ranks. Summed over the mesh, both are ``W*F`` times the true
+gradient. The model is not wrapped in ``DistributedDataParallel``:
+``video_forward`` calls it once per chunk (and the head once) under
+non-reentrant checkpoint before one backward, which DDP's reducer does not
+expect.
 
 The JAX package's ``remat_policy``, ``grad_dtype`` and ``unroll`` have no
 counterpart here (ROADMAP).
@@ -61,16 +72,13 @@ def train_step(model: DeepfakeDetector, optimizer: torch.optim.Optimizer,
     ``model`` is put in train mode and must hold fp32 parameters;
     ``optimizer`` comes from ``train.optimizer.make_optimizer``. With
     ``mesh``, ``frames`` and ``labels`` are this rank's rows
-    (``mesh.shard(global, groups=accum_steps)``) and ``preds`` are the
-    global ones."""
+    (``mesh.shard(global, groups=accum_steps)``, all ``K`` frames of them)
+    and ``preds`` are the global ones."""
     g = accum_steps
     bt = frames.shape[0]
     if bt % g:
         raise ValueError(f"batch {bt} is not divisible by accum_steps {g}")
     b = bt // g
-    if mesh is not None and mesh.frame_size > 1:
-        raise ValueError("training shards the batch only: a frames axis is not "
-                         "ported to training")
     dev = next(model.parameters()).device
     if frames.device != dev or labels.device != dev:
         raise ValueError(f"frames and labels must be on the model's device {dev}")
@@ -89,7 +97,7 @@ def train_step(model: DeepfakeDetector, optimizer: torch.optim.Optimizer,
         fr, lb = frames[i * b:(i + 1) * b], labels[i * b:(i + 1) * b]
         with torch.autocast(dev.type, dtype=dt, enabled=dt != torch.float32):
             out = video_forward(model, fr, mode=mode, frame_chunk=frame_chunk, seed=s,
-                                remat=remat, mesh=mesh)
+                                remat=remat, mesh=mesh, frame_axis=True)
         if mesh is not None:      # the losses of the global batch
             out = {k: mesh.gather(v) for k, v in out.items()}
             lb = mesh.gather(lb)
@@ -106,7 +114,7 @@ def train_step(model: DeepfakeDetector, optimizer: torch.optim.Optimizer,
     grads = [p.grad for p in params]
     if mesh is not None:
         flat = _flatten_dense_tensors(grads)
-        mesh.all_reduce_(flat).div_(float(g * mesh.batch_size))
+        mesh.all_reduce_(flat, mesh.world_group).div_(float(g * mesh.world_size))
         torch._foreach_copy_(grads, _unflatten_dense_tensors(flat, grads))
     elif g > 1:
         torch._foreach_div_(grads, float(g))

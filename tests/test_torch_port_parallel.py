@@ -2,10 +2,13 @@
 on the CPU over gloo, held against the world-of-one port and the JAX package.
 
 Two spawned worlds, each started once for the module, run every scenario
-once and hand their results back through files: a world of 2 (``data`` 2)
-for training and a world of 4 for serving and evaluation (meshes
-``data`` 4; ``data`` 2 x ``frames`` 2; ``dcn`` 2 x ``frames`` 2). Each rank
-runs one torch thread. The module imports torch, numpy and the port only, so
+once and hand their results back through files: a world of 2 for training
+(``data`` 2, then ``frames`` 2: a train step and a ``Trainer.fit`` epoch) and
+a world of 4 for serving and evaluation (meshes ``data`` 4; ``data`` 2 x
+``frames`` 2; ``dcn`` 2 x ``frames`` 2), which also trains a step on the two
+meshes with a frames axis. Training on a frames axis meets a ragged tail
+chunk of one frame, so one rank of each frames group holds no row of it.
+Each rank runs one torch thread. The module imports torch, numpy and the port only, so
 the spawned ranks import no JAX; the JAX references are built in the parent
 (their imports inside the fixtures), compiling while the worlds run.
 
@@ -19,7 +22,8 @@ zero-update tensor pinned below 1e-7; BN running statistics rtol 1e-4, atol
 1e-5, atol 1e-6). The train step against JAX runs with dropout and
 stochastic depth neutralised on both sides (as ``test_torch_port_train.py``
 does: JAX's masks come from its own generator); with dropout on, the world
-of 2 is held to the world-of-one port.
+of 2 and every frames mesh are held to the world-of-one port, and with it
+off, to JAX as well.
 """
 
 import datetime
@@ -164,6 +168,18 @@ def _train_world(rank, tmp):
     out["fit_state"] = {k: v.clone() for k, v in trainer.model.state_dict().items()}
     out["fit_files"] = sorted(os.listdir(ckpt)) if os.path.isdir(ckpt) else []
     mesh.close()
+    mesh = make_mesh(data=1, frames=2, device="cpu")
+    out["frames2"] = _step(_port(sd, dropout=True), mesh)
+    out["frames2_no_dropout"] = _step(_port(sd, dropout=False), mesh)
+    ckpt = os.path.join(tmp, "fit_frames2")
+    train = BatchLoader(Clips(8, 1), 2, drop_last=True, num_workers=0, shard=mesh.batch_shard)
+    val = BatchLoader(Clips(5, 3), 2, pad_last=True, num_workers=0, shard=mesh.batch_shard)
+    trainer = Trainer(FIT_CFG, FIT_TCFG, device="cpu", log=lambda s: None, steps_per_epoch=2,
+                      checkpoint_dir=ckpt, mesh=mesh)
+    out["fit_frames2"] = trainer.fit(train, val)
+    out["fit_frames2_state"] = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+    out["fit_frames2_files"] = sorted(os.listdir(ckpt)) if os.path.isdir(ckpt) else []
+    mesh.close()
     return out
 
 
@@ -184,6 +200,9 @@ def _serve_world(rank, tmp):
                 res["undivisible"] = None
             except ValueError as e:
                 res["undivisible"] = str(e)
+        if axis:
+            res["train"] = _step(_port(sd, dropout=True), mesh)
+            res["train_no_dropout"] = _step(_port(sd, dropout=False), mesh)
         if name == "data4":
             res["eval"] = evaluate(_port(sd), BatchLoader(Clips(10, 6, frames=4), 4,
                                                           pad_last=True, num_workers=0,
@@ -304,6 +323,19 @@ def jax_step(jax_side):
 
 
 @pytest.fixture(scope="module")
+def jax_stepped(jax_step):
+    """JAX's step run once: its loss, preds and updated state as the port's
+    state dict."""
+    from ewvit_tpu_torch.utils.convert import jax_to_state_dict
+
+    pending, _ = jax_step
+    new, metrics = pending.result()()
+    want = jax_to_state_dict({"params": _np_tree(new.params),
+                              "batch_stats": _np_tree(new.batch_stats)}, PCFG)
+    return float(metrics["loss"]), np.asarray(metrics["preds"]), want
+
+
+@pytest.fixture(scope="module")
 def jax_serve(jax_side):
     from ewvit_tpu.serving import InferenceEngine as JaxEngine
 
@@ -408,8 +440,11 @@ def test_layouts_and_groups_without_processes():
 
 
 def test_mesh_refusals_without_processes():
-    """What a mesh refuses before any collective: a batch that does not split
-    over the batch ranks, and a frames axis in training."""
+    """What a mesh refuses before any collective (a batch that does not split
+    over the batch ranks), and the rank arithmetic of training on a frames
+    axis: each rank's contiguous share of a chunk, none of a tail chunk
+    shorter than the axis, and the global rows of the share."""
+    from ewvit_tpu_torch.models.detector import _frames_split
     from ewvit_tpu_torch.parallel import Mesh
 
     mesh = Mesh(make_layout(4, data=2, frames=2), rank=3, device=torch.device("cpu"),
@@ -418,12 +453,16 @@ def test_mesh_refusals_without_processes():
     assert mesh.local_rows(6) == slice(3, 6)
     with pytest.raises(ValueError, match="does not split"):
         mesh.local_rows(3)
-    with pytest.raises(ValueError, match="frames axis"):
-        Trainer(FIT_CFG, FIT_TCFG, device="cpu", log=lambda s: None, mesh=mesh)
-    model = build_detector(FIT_CFG, device="cpu", seed=0).train()
-    with pytest.raises(ValueError, match="frames axis"):
-        train_step(model, torch.optim.SGD(model.parameters(), lr=LR),
-                   torch.zeros(2, 2, 3, 32, 32), torch.zeros(2), seed=0, mesh=mesh)
+    lay = make_layout(6, data=2, frames=3)
+    assert [lay.frame_share(5, f) for f in range(3)] == [(0, 2), (2, 4), (4, 5)]
+    assert [lay.frame_share(2, f) for f in range(3)] == [(0, 1), (1, 2), (2, 2)]
+    assert mesh.world_size == 4 and mesh.frame_share(2) == (1, 2) and mesh.frame_share(1) == (1, 1)
+    # rank 3 holds clips 2 and 3 of a micro-batch of 4: frame 1 of a 2-frame
+    # chunk is global rows 2*2+1 and 3*2+1; a 1-frame tail chunk, no row
+    split = _frames_split(mesh, 2, 2, 1, 1, torch.device("cpu"))
+    assert split.index.tolist() == [5, 7] and split.total == 8
+    split = _frames_split(mesh, 2, 1, 1, 0, torch.device("cpu"))
+    assert split.index.numel() == 0 and split.total == 4
 
 
 def test_every_batchnorm_is_the_synced_one():
@@ -553,7 +592,39 @@ def test_sharded_train_step_matches_world_of_one(worlds, world_of_one, jax_side,
         assert torch.equal(t, ranks[1]["state"][name]), name
 
 
-def test_sharded_train_step_matches_jax(worlds, world_of_one, jax_step, jax_side):
+@pytest.mark.parametrize("mesh", ["frames2", "data2_frames2", "dcn2_frames2"])
+def test_frames_axis_train_step_matches_world_of_one(worlds, world_of_one, jax_side, mesh):
+    """One SGD step (accum 2, dropout and stochastic depth on) with each
+    chunk's frames split over a frames axis of 2, on worlds of 2 and 4: K 5
+    in chunks of 2, 2 and a tail of 1 that one rank of each frames group
+    holds no row of. Loss, predictions, the update of every parameter (its
+    gradient) and the BN running statistics against the unsplit port at the
+    batch axis's tolerances; ``num_batches_tracked`` equal (each BN moved
+    once per global chunk); every rank's state bit for bit the same."""
+    ranks = _frames_ranks(worlds, mesh, dropout=True)
+    ref = world_of_one["dropout"]
+    start = jax_side[2]
+    for r in ranks:
+        np.testing.assert_allclose(r["loss"], ref["loss"], rtol=1e-5)
+        np.testing.assert_allclose(r["preds"], ref["preds"], rtol=1e-4, atol=1e-6)
+    _check_updates(start, ref["state"], ranks[0]["state"], _tiers(_port(start)), mesh)
+    tracked = [n for n in ref["state"] if n.endswith("num_batches_tracked")]
+    assert tracked and all(torch.equal(ranks[0]["state"][n], ref["state"][n]) for n in tracked)
+    for name, t in ranks[0]["state"].items():
+        for r in ranks[1:]:
+            assert torch.equal(t, r["state"][name]), name
+
+
+def _frames_ranks(worlds, mesh, dropout):
+    """Every rank's step on a frames mesh of the worlds."""
+    if mesh == "frames2":
+        return [r["frames2" if dropout else "frames2_no_dropout"]
+                for r in worlds["train"].results()]
+    return [r[mesh]["train" if dropout else "train_no_dropout"]
+            for r in worlds["serve"].results()]
+
+
+def test_sharded_train_step_matches_jax(worlds, world_of_one, jax_stepped, jax_side):
     """The world of 2 (dropout off) against JAX's single-device
     ``train_step`` (dropout patched out), at the same tolerances, where the
     elementwise bound of a tensor is at least twice the unsplit port's own
@@ -561,20 +632,37 @@ def test_sharded_train_step_matches_jax(worlds, world_of_one, jax_step, jax_side
     and the JAX package's as ``E[x^2] - E[x]^2``, which loses digits on the
     ragged tail's 2-row chunk (``test_torch_port_train.py`` bounds that
     distance); sharding may not add more than that."""
-    from ewvit_tpu_torch.utils.convert import jax_to_state_dict
+    _check_against_jax([worlds["train"].results()[0]["no_dropout"]], world_of_one, jax_stepped,
+                       jax_side, "against JAX")
 
-    pending, _ = jax_step
-    new, metrics = pending.result()()
-    want = jax_to_state_dict({"params": _np_tree(new.params),
-                              "batch_stats": _np_tree(new.batch_stats)}, PCFG)
-    got = worlds["train"].results()[0]["no_dropout"]
-    np.testing.assert_allclose(got["loss"], float(metrics["loss"]), rtol=1e-5)
-    np.testing.assert_allclose(got["preds"], np.asarray(metrics["preds"]), rtol=1e-4,
-                               atol=1e-6)
+
+@pytest.mark.parametrize("mesh", ["frames2", "data2_frames2", "dcn2_frames2"])
+def test_frames_axis_train_step_matches_jax(worlds, world_of_one, jax_stepped, jax_side, mesh):
+    """The frames-axis step with dropout off (K 5 in chunks of 2, 2 and a
+    1-frame tail that one rank of each frames group holds no row of) against
+    JAX's single-device ``train_step``, as the batch axis is held: every
+    rank's loss and preds, rank 0's state, and every rank's state bit for bit
+    rank 0's. JAX holds its own step on such meshes to the unsharded one
+    (``tests/test_sharded_exactness.py``)."""
+    ranks = _frames_ranks(worlds, mesh, dropout=False)
+    _check_against_jax(ranks, world_of_one, jax_stepped, jax_side, f"{mesh} against JAX")
+    for name, t in ranks[0]["state"].items():
+        for r in ranks[1:]:
+            assert torch.equal(t, r["state"][name]), name
+
+
+def _check_against_jax(steps, world_of_one, jax_stepped, jax_side, what):
+    """Sharded steps (dropout off; one per rank): each one's loss and preds
+    against JAX's, and the first one's updated state, each tensor's bound
+    floored at twice the unsplit port's distance from JAX."""
+    loss, preds, want = jax_stepped
+    for r in steps:
+        np.testing.assert_allclose(r["loss"], loss, rtol=1e-5)
+        np.testing.assert_allclose(r["preds"], preds, rtol=1e-4, atol=1e-6)
     start = jax_side[2]
     one = world_of_one["no_dropout"]["state"]
     floor = {n: 2 * float((one[n] - want[n]).abs().max()) for n in start}
-    _check_updates(start, want, got["state"], _tiers(_port(start)), "against JAX", floor)
+    _check_updates(start, want, steps[0]["state"], _tiers(_port(start)), what, floor)
 
 
 def _np_tree(tree):
@@ -619,11 +707,22 @@ def test_sharded_fit_checkpoint_matches_world_of_one(worlds, fit_one):
     a gradient at noise level into a step of about lr, so each parameter is
     held within 2 * lr per update; the running statistics, metadata and
     epoch metrics as the train step's."""
+    _check_fit(worlds, fit_one, "fit")
+
+
+def test_frames_axis_fit_matches_world_of_one(worlds, fit_one):
+    """The same epoch on a ``frames`` 2 mesh (3-frame clips in chunks of 2:
+    rank 1 holds no row of the 1-frame tail chunk), against the unsplit run
+    as the batch-axis fit is held."""
+    _check_fit(worlds, fit_one, "fit_frames2")
+
+
+def _check_fit(worlds, fit_one, key):
     result, ckpt = fit_one
     ranks = worlds["train"].results()
-    assert ranks[0]["fit_files"] == sorted(os.listdir(ckpt))
+    assert ranks[0][f"{key}_files"] == sorted(os.listdir(ckpt))
     want = torch.load(os.path.join(ckpt, "checkpoint_1.pth"), weights_only=True)
-    got = torch.load(os.path.join(worlds["train"].tmp, "fit", "checkpoint_1.pth"),
+    got = torch.load(os.path.join(worlds["train"].tmp, key, "checkpoint_1.pth"),
                      weights_only=True)
     assert {k: got[k] for k in ("epoch", "step")} == {k: want[k] for k in ("epoch", "step")}
     assert got["best_val_auc"] == pytest.approx(want["best_val_auc"], abs=1e-6)
@@ -637,9 +736,10 @@ def test_sharded_fit_checkpoint_matches_world_of_one(worlds, fit_one):
             assert float((g - t).abs().max()) <= 2 * FIT_TCFG.lr * steps + 1e-6, name
         else:
             assert torch.equal(g, t), name
-    for name, t in ranks[0]["fit_state"].items():
-        assert torch.equal(t, ranks[1]["fit_state"][name]), name
-    for a, b in zip(ranks[0]["fit"]["history"], result["history"]):
+    for name, t in ranks[0][f"{key}_state"].items():
+        assert torch.equal(t, ranks[1][f"{key}_state"][name]), name
+    assert len(ranks[0][key]["history"]) == len(result["history"]) == 1
+    for a, b in zip(ranks[0][key]["history"], result["history"]):
         pairs = [(a["train"]["loss"], b["train"]["loss"])]
         pairs += [(a["train"]["metrics"][k], b["train"]["metrics"][k]) for k in ("auc", "accuracy")]
         pairs += [(a["val"][k], b["val"][k]) for k in ("loss", "auc", "accuracy")]
