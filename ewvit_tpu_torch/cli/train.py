@@ -13,9 +13,13 @@ and ``training_history.csv`` into ``--output`` (needs matplotlib).
 ``--mesh`` trains data-parallel (``parallel.make_mesh``: one process per
 GPU, the batch split over them): launch ``torchrun --nproc-per-node=N -m
 ewvit_tpu_torch.cli.train --mesh ...``; without torchrun's environment it
-forms a world of one. ``--batch-size`` must be divisible by the ranks (the
-JAX CLI asks ``batch * accum`` to divide, train.py:136-139; here a
-micro-batch cannot split below a clip). Rank 0 alone prints and writes.
+forms a world of one. ``--batch-size`` must be divisible by the ranks. The
+JAX CLI checks only ``batch * accum`` (train.py:136-139), but its val epoch
+places each val batch of ``--batch-size`` clips on the ``('dcn', 'data')``
+sharding (ewvit_tpu/train/loop.py:143-146, :220-221), and ``jax.device_put``
+refuses a batch that the ranks do not divide: the JAX run stops at its
+first val epoch where this one refuses to start. Rank 0 alone prints and
+writes.
 
 ``main(argv, model_cfg=, face_detector=)`` trains the given
 ``configs.ModelConfig`` in place of the one the flags build (``--dim``,
@@ -119,7 +123,9 @@ def _run(args: argparse.Namespace, mesh, *, model_cfg=None, face_detector="auto"
         dp = mesh.batch_size
         if args.batch_size % dp:
             raise ValueError(f"--batch-size {args.batch_size} must be divisible by the "
-                             f"mesh batch axes dcn*data = {dp}")
+                             f"mesh batch axes dcn*data = {dp} (the JAX package's val epoch "
+                             f"places each batch on the ('dcn', 'data') sharding, which "
+                             f"refuses it too)")
         shard = mesh.batch_shard
         say(f"Data-parallel mesh: {mesh.shape}")
     device = mesh.device if mesh is not None else resolve_device(args.device)
